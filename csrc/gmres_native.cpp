@@ -1,7 +1,7 @@
 // Native host kernels for gmres_tpu (ctypes ABI).
 //
 // These are the setup-time, inherently sequential pieces that stay on the
-// host in the TPU design (SURVEY.md §7): ILU(0) factorization (the
+// host (SURVEY.md §7): ILU(0) factorization (the
 // reference's ilu0_impl role, kernels_mkl.cpp:416-496 — with diagonal
 // positions computed correctly, fixing the reference's unpopulated
 // diag_inds defect), triangular dependency-level counts (the analysis
@@ -9,7 +9,8 @@
 // triangular solves (host verification oracle), and a fast MatrixMarket
 // coordinate-line parser (the mmio.c role).
 //
-// Build: see csrc/Makefile (g++ -O3 -shared -fPIC).
+// Build: gmres_tpu/native.py compiles this file on first use
+// (g++ -O3 -fPIC -shared -std=c++17).
 
 #include <algorithm>
 #include <cstdint>
@@ -347,12 +348,9 @@ int64_t sell_pack_plan(int64_t n, int64_t n_cols, int64_t nnz,
         covered[(sb_pair[s] / nb) / SELL_SLABS_PER_BLOCK] += layers;
     }
 
-    // G auto-pick (G < 1): the x-resident kernel gets monotonically
-    // faster with larger G until dummy padding eats the gain (v5e
-    // mesh3d@1M: G=8 +0.1% pad 2.68 Gnnz/s, G=16 +0.2% 2.79, G=32 +33%
-    // 2.19 — results/round4/ab_xres_g*_w256.txt), so take the largest
-    // candidate whose EXACT padding over the real per-block chunk
-    // counts stays within 2%.
+    // G auto-pick (G < 1): take the largest candidate whose EXACT
+    // padding over the real per-block chunk counts stays within 2%
+    // (mirrors ops/sell.py:_auto_g).
     int64_t Gpick = Gp;
     if (G < 1) {
         int64_t total_real = 0;

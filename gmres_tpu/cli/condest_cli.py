@@ -12,8 +12,8 @@ def main(argv=None) -> int:
     p.add_argument("--rand", type=int, default=42)
     p.add_argument("--max-iters", type=int, default=100_000, dest="max_iters")
     p.add_argument("--gpu", action="store_true",
-                   help="reference-compat alias for the accelerator device")
-    p.add_argument("--device", choices=["tpu", "cpu"], default="tpu")
+                   help="reference-compat alias for --device gpu")
+    p.add_argument("--device", choices=["gpu", "cpu"], default="gpu")
     p.add_argument("--synth", default=None)
     args = p.parse_args(argv)
 
@@ -27,9 +27,12 @@ def main(argv=None) -> int:
         print("No value suplied for A")
         return 1
 
+    from gmres_tpu import backend
     from gmres_tpu.cli.solve import make_synth
     from gmres_tpu.io.loader import load_matrix
     from gmres_tpu.solver.condest import condest
+
+    backend.use_compile_cache()
 
     A = make_synth(args.synth) if args.synth else load_matrix(args.Apath)
     condest(A, rand_seed=args.rand, max_iters=args.max_iters)

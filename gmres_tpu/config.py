@@ -24,8 +24,7 @@ class Mode(str, enum.Enum):
     MIXED = "mixed"                # fp64 outer residual, fp32 inner cycle
     SINGLE = "single"              # uniform fp32
     # beyond-reference 5th mode: fp64-class inner loop carried as two-fp32
-    # (double-float) pairs — fp64 convergence without XLA's emulated-fp64
-    # arrays in the hot loop (ops/df64.py)
+    # (double-float) pairs with error-free transforms (ops/df64.py)
     DF64 = "df64"
 
 
@@ -89,7 +88,7 @@ class PrecisionSpec:
     precond: str = "float64"
     # df64 tier (mode "df64"): the inner loop's vectors are carried as
     # two-fp32 (hi, lo) pairs with error-free transforms — fp64-class
-    # accuracy (~2^-48) without emulated-fp64 arrays in the hot loop.
+    # accuracy (~2^-48) from fp32 arithmetic.
     # Requires inner == "float64" (it is a REPRESENTATION of fp64).
     df64_inner: bool = False
     # Compressed-basis tier (CB-GMRES — Aliaga, Anzt, Grützmacher, Quintana-
@@ -198,8 +197,6 @@ class GmresConfig:
     # fetches progress.  Higher = less dispatch latency; history/progress
     # granularity is unaffected (per-cycle info is returned in arrays).
     host_sync_every: int = 16
-    # Use the fused Pallas kernels on TPU for the hot ops (SpMV etc.).
-    use_pallas: bool = True
     # Auto-select the fastest operator format (DIA for banded matrices,
     # CSR fallback) at solve setup.  Off: keep the caller's format.
     auto_format: bool = True
@@ -220,15 +217,11 @@ class GmresConfig:
     # batched psum + a tiny local triangular correction solve per Arnoldi
     # step, orthogonality loss O(eps*kappa) like true MGS.  Tri-state:
     #   None (default)  AUTO — on for distributed solves (where the k+1
-    #                   sequential allreduces are the latency wall) AND
-    #                   single-device TPU (round-4 chip: 0.812 s vs the
-    #                   sequential recurrence's 1.582 s at convdiff@1M,
-    #                   identical history); off on CPU
-    #                   (exact reference MGS sequence,
+    #                   sequential allreduces are the latency wall); on a
+    #                   single device as ``backend.lowsync_mgs_auto`` says
+    #                   (off on GPU and CPU: exact reference MGS sequence,
     #                   Orthogonalization.hpp:91-107 parity)
-    #   True            force on everywhere; single-device this rides the
-    #                   fused 2-sweep Pallas path (2 basis reads/step vs
-    #                   CGSR's 3 — the fast MGS-class option on TPU)
+    #   True            force on everywhere
     #   False           force the textbook sequential recurrence
     low_sync_mgs: bool | None = None
     # Apply a bandwidth-reducing RCM reordering automatically when the

@@ -43,7 +43,7 @@ def main(argv=None) -> int:
     p.add_argument("--in-dir", default=".")
     p.add_argument("tol")
     p.add_argument("orth")
-    p.add_argument("device", help="Device used for the results, e.g. tpu or cpu.")
+    p.add_argument("device", help="Device used for the results, e.g. gpu or cpu.")
     p.add_argument("prec", help="The preconditioner")
     p.add_argument("mats", nargs="+")
     args = p.parse_args(argv)

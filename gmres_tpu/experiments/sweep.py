@@ -123,7 +123,7 @@ def run_one(A, mat, mode, orth, prec, rlen, rtol, rorth, tol, max_restarts,
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
-        description="Runs experiments for mixed precision gmres (TPU-native)"
+        description="Runs experiments for mixed precision gmres"
     )
     p.add_argument("--no-baseline", dest="skip_baseline", action="store_true")
     p.add_argument("--no-mixed", dest="skip_mixed", action="store_true")
@@ -132,7 +132,7 @@ def main(argv=None) -> int:
     p.add_argument("--orth", default="mgs")
     p.add_argument("--rorth", default="0")
     p.add_argument("--repeated-iter", dest="repeated_iter", action="store_true")
-    p.add_argument("--device", choices=["tpu", "cpu"], default="tpu")
+    p.add_argument("--device", choices=["gpu", "cpu"], default="gpu")
     p.add_argument("--dist", action="store_true")
     p.add_argument("--prec", default="ilu")
     p.add_argument("--max-restarts", default="1000000")
@@ -158,7 +158,10 @@ def main(argv=None) -> int:
         jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
+    from gmres_tpu import backend
     from gmres_tpu.experiments.history import append_rows
+
+    backend.use_compile_cache()
     from gmres_tpu.io.loader import load_matrix
     from gmres_tpu.cli.solve import make_synth
 

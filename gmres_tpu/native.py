@@ -1,51 +1,75 @@
 """ctypes bindings for the native host kernels (``csrc/gmres_native.cpp``).
 
-The shared library is searched in (1) ``GMRES_TPU_NATIVE`` env var,
-(2) ``csrc/`` next to the repo, (3) a per-user cache; if absent and a C++
-compiler is available it is built on demand (a one-time ~2s cost).  All
-entry points raise ImportError when the library is unavailable — callers
-(``precond/ilu0.py``, ``io/loader.py``) fall back to numpy paths.
+The shared library is built on first use from the committed source with
+the host's C++ compiler (a one-time ~2 s cost), without ``-march=native``,
+and its file name carries a hash of the source, the compiler flags and the
+host's machine type and processor: a library built for other source or
+another host is never loaded.  It lives in ``build/`` of the checkout (or
+the per-user cache when that is not writable).  All entry points raise
+ImportError when the library is unavailable — callers (``precond/ilu0.py``,
+``io/loader.py``) fall back to numpy paths.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import pathlib
+import platform
 import subprocess
+import tempfile
 
 import numpy as np
 
 _SRC = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "gmres_native.cpp"
-_LIB_NAME = "libgmres_native.so"
+_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 _lib = None
 _lib_failed = False
 
 
+def _lib_name() -> str:
+    """``libgmres_native-<hash>.so``, keyed on what the build depends on."""
+    h = hashlib.sha256(_SRC.read_bytes())
+    h.update(" ".join(_FLAGS).encode())
+    h.update(f"{platform.machine()}|{platform.processor()}".encode())
+    return f"libgmres_native-{h.hexdigest()[:16]}.so"
+
+
 def _find_or_build() -> pathlib.Path:
-    env = os.environ.get("GMRES_TPU_NATIVE")
-    if env and pathlib.Path(env).exists():
-        return pathlib.Path(env)
-    beside = _SRC.parent / _LIB_NAME
-    if beside.exists() and beside.stat().st_mtime >= _SRC.stat().st_mtime:
-        return beside
+    if not _SRC.exists():
+        raise ImportError("native source not found")
+    name = _lib_name()
+    build = _SRC.parent.parent / "build"
     cache = pathlib.Path(
         os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache"))
     ) / "gmres_tpu"
-    cache.mkdir(parents=True, exist_ok=True)
-    cached = cache / _LIB_NAME
-    if cached.exists() and cached.stat().st_mtime >= _SRC.stat().st_mtime:
-        return cached
-    if not _SRC.exists():
-        raise ImportError("native source not found")
-    target = beside if os.access(_SRC.parent, os.W_OK) else cached
-    cmd = ["g++", "-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
-           "-o", str(target), str(_SRC)]
+    for d in (build, cache):
+        if (d / name).exists():
+            return d / name
+    try:
+        build.mkdir(exist_ok=True)
+        target_dir = build if os.access(build, os.W_OK) else None
+    except OSError:
+        target_dir = None
+    if target_dir is None:
+        cache.mkdir(parents=True, exist_ok=True)
+        target_dir = cache
+    target = target_dir / name
+    # build into a private temporary file and rename it into place, so
+    # concurrent processes never load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target_dir)
+    os.close(fd)
+    cmd = ["g++", *_FLAGS, "-o", tmp, str(_SRC)]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, target)
     except (subprocess.SubprocessError, FileNotFoundError) as e:
         raise ImportError(f"native build failed: {e}") from e
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
     return target
 
 

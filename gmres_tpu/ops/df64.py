@@ -1,20 +1,16 @@
 """Double-float (two-fp32) vector math — the ``df64`` INNER precision tier.
 
-TPU has no fp64 ALUs: XLA emulates every fp64 op in software (measured
-~8-20x over fp32 for the O(n·m) inner-loop work).  This module represents
-an fp64-quality vector as an (hi, lo) fp32 pair (``hi + lo`` with
-``|lo| <= ulp(hi)/2``, unit roundoff ~2^-48) and implements the GMRES
-inner loop's vector algebra on pairs with error-free transformations —
-pure jnp, so it fuses under XLA on any backend and inside shard_map.
+This module represents an fp64-quality vector as an (hi, lo) fp32 pair
+(``hi + lo`` with ``|lo| <= ulp(hi)/2``, unit roundoff ~2^-48) and
+implements the GMRES inner loop's vector algebra on pairs with error-free
+transformations — pure jnp, so it fuses under XLA on any backend and
+inside shard_map.
 
 This powers ``PrecisionSpec(df64_inner=True)`` (mode ``"df64"``): a
 beyond-reference 5th precision configuration giving fp64-class
-convergence without XLA's emulated-fp64 arrays in the hot loop.  The
-scalar O(m^2) machinery (H, Givens, trsv) stays true fp64 — it is tiny.
-
-Primitives (_two_sum/_two_prod/_df_add/_df_mul) are shared with the
-Pallas df64 kernels (``ops/pallas/df64_kernel.py``) — one set of EFT
-definitions for both the kernel and jnp paths.
+convergence from fp32 arithmetic.  The scalar O(m^2) machinery (H,
+Givens, trsv) stays true fp64 — it is tiny.  Operators stay plain fp64:
+``spmv_df64_pair`` merges the pair, multiplies in fp64 and splits again.
 
 Reductions use a pairwise halving tree of df64 additions (error growth
 O(log n) * 2^-48); distributed reductions all_gather the per-shard PAIR
@@ -27,12 +23,57 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from gmres_tpu.ops.pallas.df64_kernel import (  # noqa: F401  (re-exports)
-    _df_add as df_add,
-    _df_mul as df_mul,
-    merge_f64,
-    split_f64,
-)
+_SPLIT = 4097.0  # 2^12 + 1: Veltkamp split constant for fp32
+
+
+def split_f64(x) -> tuple[jax.Array, jax.Array]:
+    """fp64 array -> (hi, lo) fp32 pair with x == hi + lo exactly
+    (up to double rounding of the tail)."""
+    hi = x.astype(jnp.float32)
+    lo = (x - hi.astype(x.dtype)).astype(jnp.float32)
+    return hi, lo
+
+
+def merge_f64(hi, lo):
+    return hi.astype(jnp.float64) + lo.astype(jnp.float64)
+
+
+def _two_sum(a, b):
+    s = a + b
+    bb = s - a
+    err = (a - (s - bb)) + (b - bb)
+    return s, err
+
+
+def _quick_two_sum(a, b):
+    # requires |a| >= |b|
+    s = a + b
+    err = b - (s - a)
+    return s, err
+
+
+def _two_prod(a, b):
+    p = a * b
+    ca = _SPLIT * a
+    a_hi = ca - (ca - a)
+    a_lo = a - a_hi
+    cb = _SPLIT * b
+    b_hi = cb - (cb - b)
+    b_lo = b - b_hi
+    err = ((a_hi * b_hi - p) + a_hi * b_lo + a_lo * b_hi) + a_lo * b_lo
+    return p, err
+
+
+def df_mul(ah, al, bh, bl):
+    p, e = _two_prod(ah, bh)
+    e = e + (ah * bl + al * bh)
+    return _quick_two_sum(p, e)
+
+
+def df_add(ah, al, bh, bl):
+    s, e = _two_sum(ah, bh)
+    e = e + al + bl
+    return _quick_two_sum(s, e)
 
 
 def promote_f32(x: jax.Array):
@@ -113,38 +154,12 @@ def df_update(wh, wl, Vh, Vl, u64):
     return df_sub(wh, wl, ch, cl)
 
 
-def spmv_df64_pair(A, xh, xl, axis_name=None, use_pallas=True):
-    """y = A @ x on an (hi, lo) operand pair, returning a pair.
-
-    Dispatch: DF64Dia -> jnp shifted-FMA df64 bands (XLA fuses; the
-    Pallas variant stays the outer-residual's fused path); DF64Sell ->
-    the Pallas df64 SELL kernel; plain fp64 operators (CPU/testing) ->
-    exact merge, fp64 SpMV, exact split."""
-    from gmres_tpu.ops.dia import shift_read
-
-    if hasattr(A, "sell"):  # DF64Sell
-        from gmres_tpu.ops.pallas.sell_kernel import sell_spmv_df64
-
-        xh_g, xl_g = xh, xl
-        if axis_name is not None:
-            xh_g = jax.lax.all_gather(xh_g, axis_name, tiled=True)
-            xl_g = jax.lax.all_gather(xl_g, axis_name, tiled=True)
-        return sell_spmv_df64(A.sell, xh_g, xl_g,
-                              interpret=jax.default_backend() != "tpu")
-    if hasattr(A, "data_hi"):  # DF64Dia
-        n = A.n_rows
-        yh = jnp.zeros((n,), jnp.float32)
-        yl = jnp.zeros_like(yh)
-        for d, off in enumerate(A.offsets):
-            vh = shift_read(xh, off, n)
-            vl = shift_read(xl, off, n)
-            ph, pl = df_mul(A.data_hi[d], A.data_lo[d], vh, vl)
-            yh, yl = df_add(yh, yl, ph, pl)
-        return yh, yl
-    # plain operator (fp64 values): exact round-trip through fp64
+def spmv_df64_pair(A, xh, xl, axis_name=None):
+    """y = A @ x on an (hi, lo) operand pair, returning a pair: exact
+    merge, fp64 SpMV, exact split."""
     from gmres_tpu.ops.spmv import spmv
 
-    y = spmv(A, merge_f64(xh, xl), axis_name, use_pallas=use_pallas)
+    y = spmv(A, merge_f64(xh, xl), axis_name)
     return split_f64(y.astype(jnp.float64))
 
 
@@ -214,38 +229,9 @@ def df_mgs_lowsync_step(Vh, Vl, k, wh, wl, L, axis_name):
 
 
 def df_orthonormalize_step(kind: str, Vh, Vl, k, wh, wl, axis_name=None,
-                           orth_steps: int = 2, use_pallas: bool = True):
+                           orth_steps: int = 2):
     """Orthogonalize + norm in df64: ``(h_col_f64, (wh, wl), h_next_f64)``
-    — the df64 analog of ``ops/orth.py:orthonormalize_step``.
-
-    On TPU the CGS/CGSR paths route through the fused Pallas pair-kernel
-    trio (``ops/pallas/df64_kernel.py``: gram / update+gram /
-    update+sumsq): the jnp pair path below is correct everywhere but
-    materializes every EFT intermediate in HBM — measured 7x slower than
-    XLA's own emulated fp64 at n=1M (round-3 VERDICT weak item 5)."""
-    if (
-        use_pallas
-        and axis_name is None
-        and kind in ("cgs", "cgsr")
-        and jax.default_backend() == "tpu"
-    ):
-        from gmres_tpu.ops.pallas.df64_kernel import (
-            df_gram_pallas,
-            df_orth_pallas_ok,
-            df_update_gram_pallas,
-            df_update_sumsq_pallas,
-        )
-
-        m1, n = Vh.shape
-        if df_orth_pallas_ok(m1, n):
-            u = df_gram_pallas(Vh, Vl, wh, wl)
-            h = u
-            steps = orth_steps if kind == "cgsr" else 1
-            for _ in range(steps - 1):
-                wh, wl, u = df_update_gram_pallas(Vh, Vl, wh, wl, u)
-                h = h + u
-            wh, wl, ss = df_update_sumsq_pallas(Vh, Vl, wh, wl, u)
-            return h, (wh, wl), jnp.sqrt(ss)
+    — the df64 analog of ``ops/orth.py:orthonormalize_step``."""
     if kind == "mgs":
         h, wh, wl = df_mgs(Vh, Vl, k, wh, wl, axis_name)
     elif kind == "cgs":
@@ -261,7 +247,7 @@ def df_orthonormalize_step(kind: str, Vh, Vl, k, wh, wl, axis_name=None,
     return h, (wh, wl), h_next
 
 
-def typesafe_apply_df64(M, wh, wl, axis_name=None, use_pallas=True):
+def typesafe_apply_df64(M, wh, wl, axis_name=None):
     """Preconditioner application on a df64 pair with the reference's
     typesafe round-trip semantics (``gmres.cpp:12-22``): fp32
     preconditioners see the correctly-rounded fp32 value (the hi part of
@@ -275,7 +261,7 @@ def typesafe_apply_df64(M, wh, wl, axis_name=None, use_pallas=True):
     m_dtype = M.inv_diag.dtype
     if m_dtype == jnp.float32:
         return promote_f32(
-            apply_preconditioner(M, wh, axis_name, use_pallas)
+            apply_preconditioner(M, wh, axis_name)
         )
     w = merge_f64(wh, wl)
-    return split_f64(typesafe_apply(M, w, axis_name, use_pallas))
+    return split_f64(typesafe_apply(M, w, axis_name))

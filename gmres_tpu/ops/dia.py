@@ -1,18 +1,15 @@
-"""DIA (diagonal) sparse format — the TPU-fast path for banded matrices.
+"""DIA (diagonal) sparse format — the fast path for banded matrices.
 
-XLA lowers arbitrary gathers and scatter-adds on TPU to per-element loops
-(measured ~1.3e8 elem/s on v5e — 100x off memory bandwidth), so CSR
-gather+segment-sum SpMV can never reach speed-of-light there.  For matrices
-whose nonzeros live on a bounded set of diagonals (stencil Laplacians,
-convection-diffusion, and most reordered PDE matrices — the bulk of the
-paper's SuiteSparse suite), SpMV restructures into pure vector code:
+For matrices whose nonzeros live on a bounded set of diagonals (stencil
+Laplacians, convection-diffusion, and most reordered PDE matrices — the
+bulk of the paper's SuiteSparse suite), SpMV restructures into pure vector
+code:
 
     y = sum_d  data[d] * shift(x, offset_d)
 
-— one fused elementwise pass over the diagonal data, no indexed memory
-access at all.  Offsets are static metadata, so XLA unrolls and fuses the
-whole sum into a single VPU loop at HBM bandwidth in any dtype (including
-emulated fp64).
+— one elementwise pass over the diagonal data, no indexed memory access
+and no column-index bytes.  Offsets are static metadata, so XLA unrolls
+the sum into shifted fused multiply-adds in any dtype.
 
 ``from_csr`` decides profitability: DIA stores D*n values vs CSR's nnz, so
 it is used when the fill ratio stays below a threshold.
@@ -165,39 +162,9 @@ def shift_read(x: jax.Array, off: int, n: int) -> jax.Array:
     )
 
 
-import os
-
-_PALLAS_DISABLED = bool(os.environ.get("GMRES_TPU_NO_PALLAS"))
-# Below this size the XLA path wins (kernel launch + padding overheads).
-_PALLAS_MIN_ROWS = 128 * 1024
-
-
-def _pallas_profitable(A: DIAMatrix, x: jax.Array, use_pallas: bool = True) -> bool:
-    """Route to the fused Pallas kernel where it beats XLA: fp32 on TPU at
-    bandwidth-relevant sizes (measured 11x on v5e: 152 vs 14 GB/s —
-    XLA re-streams x once per diagonal; the kernel stages each block's
-    window into VMEM once).  bf16 stays on XLA (its shifted-slice fusion
-    is already near-bandwidth there) and fp64 has no Mosaic support.
-
-    ``use_pallas`` is threaded per-call from ``GmresConfig.use_pallas``
-    (no module state — concurrent solves with different configs are safe)."""
-    return (
-        not _PALLAS_DISABLED
-        and use_pallas
-        and A.data.dtype == jnp.float32
-        and A.n_rows >= _PALLAS_MIN_ROWS
-        and jax.default_backend() == "tpu"
-    )
-
-
-def dia_spmv(A: DIAMatrix, x: jax.Array, use_pallas: bool = True) -> jax.Array:
-    """y = A @ x as one fused pass over the diagonals (Pallas kernel on the
-    TPU fp32 fast path, shifted elementwise products under XLA otherwise)."""
+def dia_spmv(A: DIAMatrix, x: jax.Array) -> jax.Array:
+    """y = A @ x as shifted elementwise products, one per diagonal."""
     x = x.astype(A.data.dtype)
-    if _pallas_profitable(A, x, use_pallas):
-        from gmres_tpu.ops.pallas.spmv_kernel import dia_spmv_pallas
-
-        return dia_spmv_pallas(A, x)
     n = A.n_rows
     y = jnp.zeros((n,), dtype=A.data.dtype)
     for d, off in enumerate(A.offsets):

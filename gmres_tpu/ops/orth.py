@@ -9,7 +9,7 @@ SURVEY.md §2.4), recast for a row-stored Krylov basis ``V`` of static shape
   FLOPs for an XLA-friendly dataflow);
 - CGS is two basis matvecs and **one** allreduce per Arnoldi step; MGS is
   k+1 sequential dot/axpy pairs (k+1 allreduces) — the reason CGS/CGSR are
-  the TPU defaults at scale, consistent with the paper's GPU findings.
+  the defaults at scale, consistent with the paper's GPU findings.
   Distributed MGS defaults to the one-reduce ICWY reformulation
   (``mgs_lowsync_step``; cfg.low_sync_mgs) so its allreduce count matches
   CGS without giving up MGS-grade orthogonality;
@@ -17,9 +17,10 @@ SURVEY.md §2.4), recast for a row-stored Krylov basis ``V`` of static shape
   correction weights into h (``Orthogonalization.hpp:129-134``).
 
 Accumulation happens in (at least) float32 regardless of the storage dtype:
-bfloat16 bases are upcast around the product/reduction exactly as the
-fused Pallas kernels do in VMEM — accumulating a length-n reduction in
-bf16 would destroy orthogonality.
+bfloat16 bases are upcast around the product/reduction — accumulating a
+length-n reduction in bf16 would destroy orthogonality.  Every float32
+product states ``precision=HIGHEST``: without it the GPU may run it in
+TF32, which keeps about three decimal digits.
 """
 
 from __future__ import annotations
@@ -41,14 +42,13 @@ def _acc(x: jax.Array) -> jax.Array:
 def _masked_gram(V: jax.Array, w: jax.Array, k, axis_name, mask=True):
     """u[j] = <v_j, w> for j <= k, 0 elsewhere.  One psum when sharded.
 
-    Formulated as an elementwise product + lane reduction (VPU) rather than
-    a matmul: the (m+1, n) basis matvec is MXU-hostile (1-column operand)
-    and the elementwise form keeps true fp32/fp64 accumulation semantics.
+    Formulated as an elementwise product + row reduction rather than a
+    matmul: XLA fuses it into one pass over V, and the elementwise form
+    keeps true fp32/fp64 accumulation semantics (no TF32 path exists).
 
     ``mask=False`` skips the explicit j<=k masking — valid whenever the
     basis rows beyond k are still zero (true inside the Arnoldi loop, where
-    row k+1 is written only after orthogonalization; every in-loop op has
-    a measurable fixed cost on TPU, so dead ops matter).  The orth-loss
+    row k+1 is written only after orthogonalization).  The orth-loss
     recurrence reads V *after* the row write and must keep the mask.
     """
     u = jnp.sum(_acc(V) * _acc(w)[None, :], axis=1).astype(w.dtype)
@@ -59,43 +59,26 @@ def _masked_gram(V: jax.Array, w: jax.Array, k, axis_name, mask=True):
     return u
 
 
-def cgs(V, k, w, axis_name=None, assume_zero_tail=False, use_pallas=True):
+def cgs(V, k, w, axis_name=None, assume_zero_tail=False):
     """Classical Gram-Schmidt (``Orthogonalization.hpp:76-89``).
 
     ``assume_zero_tail=True`` skips the j<=k masking; only valid when rows
-    k+1..m of V are zero (the Arnoldi-loop invariant).  On that fast path
-    the fp32 pass routes through the fused Pallas kernels (measured 8x
-    over the XLA formulation inside solver loops: 418 vs 51 GB/s on v5e).
+    k+1..m of V are zero (the Arnoldi-loop invariant).
     """
-    if assume_zero_tail and w.dtype != jnp.float64:
-        from gmres_tpu.ops.pallas.orth_kernel import _gram, _update, profitable
-
-        if profitable(V, use_pallas):
-            u = _gram(V, w)
-            if axis_name is not None:
-                u = jax.lax.psum(u, axis_name)
-            return u, _update(V, w, u)
     u = _masked_gram(V, w, k, axis_name, mask=not assume_zero_tail)
     w = (_acc(w) - jnp.sum(_acc(u)[:, None] * _acc(V), axis=0)).astype(w.dtype)
     return u, w
 
 
-def mgs(V, k, w, axis_name=None, assume_zero_tail=False, use_pallas=True):
+def mgs(V, k, w, axis_name=None, assume_zero_tail=False):
     """Modified Gram-Schmidt (``Orthogonalization.hpp:91-107``): sequential
     dot+naxpy pairs, one per basis vector.
 
-    On the single-device fast path (zero tail beyond k, V small enough for
-    w to stay VMEM-resident) the whole recurrence runs as ONE Pallas sweep
-    over V — the traffic of a single CGS Gram pass.  Distributed MGS rides
-    the one-reduce ICWY path by default (``mgs_lowsync_step``); with
-    ``cfg.low_sync_mgs=False`` this rolled form applies, where each h_j
-    needs its own psum before the update (k+1 allreduces per step)."""
-    if assume_zero_tail and axis_name is None and w.dtype != jnp.float64:
-        from gmres_tpu.ops.pallas.orth_kernel import _mgs, mgs_profitable
-
-        if mgs_profitable(V, use_pallas, w.dtype.itemsize):
-            h, w2, _ = _mgs(V, w)
-            return h, w2
+    Distributed MGS rides the one-reduce ICWY path by default
+    (``mgs_lowsync_step``); with ``cfg.low_sync_mgs=False`` this rolled
+    form applies, where each h_j needs its own psum before the update
+    (k+1 allreduces per step).  ``assume_zero_tail`` is accepted for a
+    uniform signature; the loop runs only over rows 0..k anyway."""
     m1 = V.shape[0]
     h = jnp.zeros((m1,), dtype=w.dtype)
 
@@ -116,7 +99,7 @@ def mgs(V, k, w, axis_name=None, assume_zero_tail=False, use_pallas=True):
     return h, w
 
 
-def mgs_lowsync_step(V, k, w, L, axis_name, use_pallas=True):
+def mgs_lowsync_step(V, k, w, L, axis_name):
     """One low-synchronization MGS Arnoldi step (ICWY / one-reduce MGS).
 
     Classic MGS needs k+1 *sequential* allreduces per Arnoldi step (each
@@ -147,46 +130,13 @@ def mgs_lowsync_step(V, k, w, L, axis_name, use_pallas=True):
     at = L.dtype  # accumulation dtype (f32 for bf16/f32 bases, f64 for f64)
     m1 = V.shape[0]
 
-    # Pallas fast path (single-device AND distributed — the kernels run
-    # per shard under shard_map): the two grams of the step ride ONE
-    # fused basis sweep (_gram2) and the elimination + sum-of-squares
-    # another (_update_sumsq) — 2 V reads/step, fewer than CGSR's 3.
-    # f32 accumulation, like the einsum path for f32/bf16 bases.
-    from gmres_tpu.ops.pallas.orth_kernel import (
-        _gram2,
-        _update_sumsq,
-        profitable,
-    )
-
-    if at == jnp.float32 and profitable(V, use_pallas):
-        v_k = jax.lax.dynamic_index_in_dim(V, k, axis=0, keepdims=False)
-        u, ell_full = _gram2(V, _acc(w).astype(at),
-                             v_k.astype(jnp.float32))
-        P = jnp.stack([u, ell_full], axis=1)                    # (m+1, 2)
-        if axis_name is not None:
-            P = jax.lax.psum(P, axis_name)
-        u = P[:, 0]
-        ell = jnp.where(jnp.arange(m1) < k, P[:, 1], 0)
-        L = jax.lax.dynamic_update_slice(
-            L, ell[None, :], (jnp.asarray(k, jnp.int32), jnp.int32(0)))
-        h = jax.scipy.linalg.solve_triangular(
-            L, u, lower=True, unit_diagonal=True
-        )
-        # the in-kernel sum of squares is the LOCAL partial distributed
-        # callers psum for the norm (and the exact sumsq single-device)
-        wf, ss_local = _update_sumsq(V, _acc(w).astype(at), h)
-        return h.astype(w.dtype), wf.astype(w.dtype), ss_local.astype(at), L
-
     Vf = _acc(V).astype(at)
     v_k = jax.lax.dynamic_index_in_dim(Vf, k, axis=0, keepdims=False)
     ops = jnp.stack([_acc(w).astype(at), v_k], axis=0)          # (2, n)
     if at == jnp.float64:
-        # fp64 matmuls lower to software-emulated MXU ops on TPU (round-5
-        # chip: the einsum form cost 44 ms/step — a 34.8 s baseline-MGS
-        # solve vs the sequential recurrence's 3.06 s).  The elementwise
-        # product + lane-reduction form stays on the VPU, like
-        # _masked_gram (the fast cgs-f64 path: 1.4 ms per m=31 gram at
-        # n=1M, results/round5/kernels_convdiff.txt).
+        # fp64 keeps the elementwise product + row reduction of
+        # _masked_gram; whether the einsum form is faster on the GPU is
+        # not measured yet
         P = jnp.sum(Vf[:, None, :] * ops[None, :, :], axis=2)   # (m+1, 2)
     else:
         P = jnp.einsum("jn,cn->jc", Vf, ops, precision=_HI)      # (m+1, 2)
@@ -202,7 +152,7 @@ def mgs_lowsync_step(V, k, w, L, axis_name, use_pallas=True):
     h = jax.scipy.linalg.solve_triangular(
         L, u, lower=True, unit_diagonal=True
     )
-    if at == jnp.float64:  # same emulated-matmul trap as the gram above
+    if at == jnp.float64:  # same form as the gram above
         wf = ops[0] - jnp.sum(h[:, None] * Vf, axis=0)
     else:
         wf = ops[0] - jnp.einsum("j,jn->n", h, Vf, precision=_HI)
@@ -210,65 +160,33 @@ def mgs_lowsync_step(V, k, w, L, axis_name, use_pallas=True):
     return h.astype(w.dtype), wf.astype(w.dtype), ss_local, L
 
 
-def cgsr(V, k, w, axis_name=None, orth_steps: int = 2, assume_zero_tail=False,
-         use_pallas=True):
+def cgsr(V, k, w, axis_name=None, orth_steps: int = 2, assume_zero_tail=False):
     """CGS with re-orthogonalization (``Orthogonalization.hpp:109-136``)."""
-    h, w = cgs(V, k, w, axis_name, assume_zero_tail, use_pallas)
+    h, w = cgs(V, k, w, axis_name, assume_zero_tail)
     for _ in range(orth_steps - 1):
-        u, w = cgs(V, k, w, axis_name, assume_zero_tail, use_pallas)
+        u, w = cgs(V, k, w, axis_name, assume_zero_tail)
         h = h + u
     return h, w
 
 
 def orthogonalize(kind: str, V, k, w, axis_name=None, orth_steps: int = 2,
-                  assume_zero_tail=False, use_pallas=True):
+                  assume_zero_tail=False):
     if kind == "cgs":
-        return cgs(V, k, w, axis_name, assume_zero_tail, use_pallas)
+        return cgs(V, k, w, axis_name, assume_zero_tail)
     if kind == "mgs":
-        return mgs(V, k, w, axis_name, assume_zero_tail, use_pallas)
+        return mgs(V, k, w, axis_name, assume_zero_tail)
     if kind == "cgsr":
-        return cgsr(V, k, w, axis_name, orth_steps, assume_zero_tail,
-                    use_pallas)
+        return cgsr(V, k, w, axis_name, orth_steps, assume_zero_tail)
     raise ValueError(f"unknown orthogonalization {kind!r}")
 
 
 def orthonormalize_step(kind: str, V, k, w, axis_name=None,
-                        orth_steps: int = 2, assume_zero_tail=False,
-                        use_pallas=True):
-    """Orthogonalize + the norm of the result: ``(h_col, w_orth, h_next)``.
-
-    The Arnoldi loop always needs ``||w_orth||`` right after the
-    orthogonalization (``Orthogonalization.hpp:51-60``); on the Pallas fast
-    paths the sum of squares is accumulated inside the final update sweep,
-    saving a separate pass over w — and fusing CGSR's middle update+gram
-    into one V sweep (3 basis reads per CGSR step instead of 5 passes).
-    """
-    if assume_zero_tail and w.dtype != jnp.float64:
-        from gmres_tpu.ops.pallas.orth_kernel import (
-            _gram,
-            _mgs,
-            _update_sumsq,
-            cgsr2_pallas,
-            mgs_profitable,
-            profitable,
-        )
-
-        if (kind == "mgs" and axis_name is None
-                and mgs_profitable(V, use_pallas, w.dtype.itemsize)):
-            return _mgs(V, w)  # (h, w', ||w'||) — norm folded in-kernel
-        if profitable(V, use_pallas):
-            if kind == "cgsr" and orth_steps == 2:
-                return cgsr2_pallas(V, w, axis_name)
-            if kind == "cgs":
-                u = _gram(V, w)
-                if axis_name is not None:
-                    u = jax.lax.psum(u, axis_name)
-                w2, ss = _update_sumsq(V, w, u)
-                if axis_name is not None:
-                    ss = jax.lax.psum(ss, axis_name)
-                return u, w2, jnp.sqrt(ss).astype(w.dtype)
+                        orth_steps: int = 2, assume_zero_tail=False):
+    """Orthogonalize + the norm of the result: ``(h_col, w_orth, h_next)``
+    (the Arnoldi loop always needs ``||w_orth||`` right after the
+    orthogonalization, ``Orthogonalization.hpp:51-60``)."""
     h, w = orthogonalize(kind, V, k, w, axis_name, orth_steps,
-                         assume_zero_tail, use_pallas)
+                         assume_zero_tail)
     from gmres_tpu.ops.blas import nrm2
 
     if w.dtype == jnp.bfloat16:

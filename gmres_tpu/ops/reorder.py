@@ -1,10 +1,9 @@
 """Bandwidth-reducing row/column reordering.
 
-TPUs have no vectorized arbitrary gather, so the fast SpMV paths (DIA,
-halo windows) need the matrix's nonzeros near the diagonal.  Reverse
-Cuthill-McKee reordering makes most irregular PDE/SuiteSparse matrices
-banded enough to qualify — the TPU-native answer to patterns the
-reference fed to gather-capable MKL/cuSPARSE backends.
+The gather-free SpMV paths (DIA, halo windows) need the matrix's nonzeros
+near the diagonal.  Reverse Cuthill-McKee reordering makes most irregular
+PDE/SuiteSparse matrices banded enough to qualify, and lets a partitioned
+operator exchange halos instead of all-gathering the operand.
 
 ``solve(..., reorder="rcm")`` permutes A symmetrically at setup, solves
 the permuted system, and un-permutes the solution; convergence behavior is

@@ -23,9 +23,8 @@ def trsv_upper_padded(H: jax.Array, s: jax.Array, k) -> jax.Array:
 
     Back-substitution UNROLLED over the static m (column sweep): the same
     arithmetic as the reference's cblas/cublas trsv, but as m static fused
-    vector ops instead of LAPACK-style while loops, which cost ~6 ms per
-    call on TPU for m=30.  (A log2(m)-matmul Neumann-product form was
-    measured faster still, but loses enough fp32 accuracy on
+    vector ops instead of a LAPACK-style while loop of m dependent steps.
+    (A log2(m)-matmul Neumann-product form loses enough fp32 accuracy on
     ill-conditioned R to change convergence histories — rejected.)
     """
     m = H.shape[0]

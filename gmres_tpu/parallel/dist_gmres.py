@@ -49,10 +49,6 @@ from gmres_tpu.sparse import CSRMatrix
 _f64 = jnp.float64
 AXIS = "rows"
 
-# below this the SELL fast path is not worth its pack cost (same scale
-# where the single-device stage() starts routing unstructured CSR to SELL)
-_SELL_MIN_ROWS = 64 * 1024
-
 # id-keyed, weakref-cleaned staging cache for partitioned+uploaded operators
 # (the same pattern as solver.gmres._STAGING_CACHE)
 _DIST_STAGE_CACHE: dict = {}
@@ -121,30 +117,13 @@ def _partition_matrix(A: CSRMatrix, n_shards: int, use_halo: bool,
 
 
 def process_row_range(mesh: Mesh, n: int, owned=None,
-                      rows_per: int | None = None,
-                      fmt: str = "csr") -> tuple[int, int]:
+                      rows_per: int | None = None) -> tuple[int, int]:
     """The contiguous global row range this process's shards cover on a
     1-D row mesh — the range to pass to ``load_matrix_rows`` for pod-scale
     per-host input.  ``rows_per`` overrides the shard height (pass
     ``sell_rows_per(n, P)`` when the solve will force the SELL format).
-    ``fmt='auto'``: the union of the plain (ceil) shard grid and the SELL
-    ROWS_PER_BLOCK-aligned grid — the range to load when format routing is
-    left to the solver (the cross-process DIA structure vote may route an
-    unstructured pattern to per-shard SELL, whose shards sit on the wider
-    grid).  Raises if the process's shards are not contiguous in the mesh
-    (an exotic device assignment this input form does not support)."""
-    if fmt == "auto":
-        if rows_per is not None:
-            raise ValueError("pass either rows_per or fmt='auto', not both")
-        from gmres_tpu.parallel.sell_dist import sell_rows_per
-
-        lo1, hi1 = process_row_range(mesh, n, owned=owned)
-        lo2, hi2 = process_row_range(
-            mesh, n, owned=owned, rows_per=sell_rows_per(n, mesh.devices.size)
-        )
-        return min(lo1, lo2), max(hi1, hi2)
-    if fmt != "csr":
-        raise ValueError(f"unknown fmt {fmt!r} (use 'csr' or 'auto')")
+    Raises if the process's shards are not contiguous in the mesh (an
+    exotic device assignment this input form does not support)."""
     if owned is None:
         pid = jax.process_index()
         owned = [s for s, d in enumerate(mesh.devices.flat)
@@ -210,19 +189,14 @@ def _partition_prec(M, n_shards: int, use_halo: bool = True,
 
 def _localize_matrix(A):
     """Inside shard_map: PartitionedCSR blocks rebuild a local CSRMatrix;
-    PartitionedSELL rebuilds the shard-local SELL pack (and its df64
-    wrapper); halo operators pass through (spmv dispatches on them
-    directly)."""
-    from gmres_tpu.parallel.sell_dist import PartitionedDF64Sell, PartitionedSELL
+    PartitionedSELL rebuilds the shard-local SELL pack; halo operators
+    pass through (spmv dispatches on them directly)."""
+    from gmres_tpu.parallel.sell_dist import PartitionedSELL
 
     if isinstance(A, PartitionedCSR):
         return A.local_block()
     if isinstance(A, PartitionedSELL):
         return A.local_sell()
-    if isinstance(A, PartitionedDF64Sell):
-        from gmres_tpu.ops.sell import DF64Sell
-
-        return DF64Sell(sell=A.psell.local_sell())
     return A
 
 
@@ -295,14 +269,14 @@ def make_distributed_cycle(cfg: GmresConfig, mesh: Mesh):
     return chunked, cfg
 
 
-def _dist_ckpt_hooks(checkpoint, mesh: Mesh, shard0, df64_active: bool,
-                     rows_per: int, owned, exchange=None):
+def _dist_ckpt_hooks(checkpoint, mesh: Mesh, shard0, rows_per: int, owned,
+                     exchange=None):
     """Checkpoint persistence for sharded x (SURVEY.md §5.4 at pod scale —
     preemption is the common case on large slices).  Each process saves
     its own contiguous block of shards to its own file
     (``<path>.p<process>``under multi-host); resume rebuilds the sharded
-    array via ``make_array_from_callback`` (and re-splits the df64 pair),
-    so no process ever materializes global x.  Resume requires the same
+    array via ``make_array_from_callback``, so no process ever
+    materializes global x.  Resume requires the same
     mesh/process layout as the save.
 
     A preemption can land BETWEEN two processes' saves, leaving the
@@ -332,10 +306,6 @@ def _dist_ckpt_hooks(checkpoint, mesh: Mesh, shard0, df64_active: bool,
     lo = (min(owned_sorted) if owned_sorted else 0) * rows_per
 
     def to_host(x):
-        if df64_active:
-            from gmres_tpu.ops.pallas.df64_kernel import merge_f64
-
-            x = jax.jit(merge_f64)(*x)
         shards = sorted(x.addressable_shards,
                         key=lambda s: s.index[0].start or 0)
         return np.concatenate([np.asarray(s.data) for s in shards])
@@ -347,12 +317,7 @@ def _dist_ckpt_hooks(checkpoint, mesh: Mesh, shard0, df64_active: bool,
             s = idx[0].start if idx[0].start is not None else 0
             return a[s - lo : s - lo + rows_per]
 
-        xg = jax.make_array_from_callback((rows_per * n_shards,), shard0, cb)
-        if df64_active:
-            from gmres_tpu.ops.pallas.df64_kernel import split_f64
-
-            xg = jax.jit(split_f64, out_shardings=(shard0, shard0))(xg)
-        return xg
+        return jax.make_array_from_callback((rows_per * n_shards,), shard0, cb)
 
     def consensus(state):
         """Reconcile per-process resume headers (multi-host only)."""
@@ -408,8 +373,7 @@ def _make_bilu_minvb(cfg: GmresConfig, mesh: Mesh):
     in_dt = cfg.precision.inner_dtype
 
     def local(Mv, bl):
-        w = typesafe_apply(_localize_prec(Mv), bl.astype(in_dt), None,
-                           cfg.use_pallas)
+        w = typesafe_apply(_localize_prec(Mv), bl.astype(in_dt), None)
         return jax.lax.psum(jnp.sum(w.astype(jnp.float64) ** 2), AXIS)
 
     fn = _shard_map(local, mesh, in_specs=(P(AXIS), P(AXIS)), out_specs=P())
@@ -424,16 +388,17 @@ def solve_distributed(
     x0=None,
     record_history: bool = False,
     progress=None,
-    force_df64: bool = False,
     multihost: bool = False,
     force_sell: bool = False,
     checkpoint=None,
 ) -> GmresResult:
     """Row-partitioned GMRES over all devices (or the given mesh).
 
-    ``force_df64`` opts the fp64 outer residual into the double-float halo
-    kernels off-TPU (they run in interpret mode there) — a testing hook;
-    on TPU the df64 staging is automatic for halo-DIA operators.
+    Operators are partitioned for halo exchange when their pattern is
+    neighbor-local (``parallel/halo.py``: HaloDIA for banded patterns,
+    HaloCSR otherwise), else by the allgather row partition.
+    ``force_sell=True`` packs the operator as per-shard SELL instead
+    (``parallel/sell_dist.py``); no automatic route picks it.
 
     ``multihost=True`` runs over a process-spanning mesh (SURVEY.md §5.8):
     call ``gmres_tpu.parallel.multihost.initialize`` (or
@@ -474,7 +439,8 @@ def solve_distributed(
             if d.process_index == pid
         )
         exchange = exchange_host_array
-    want_sell = force_sell  # refined below for per-host input (auto vote)
+    # the SELL pack stores f32 values: it serves f32 inner cycles only
+    want_sell = force_sell and in_dt == jnp.float32
     if is_block:
         # per-host INPUT (pod scale): this process never saw the global
         # entry arrays — only its loaded row block
@@ -498,28 +464,6 @@ def solve_distributed(
         if owned is None:
             owned = frozenset(range(n_shards))
         exchange = exchange_host_array
-        if (
-            not want_sell
-            and cfg.auto_format
-            and cfg.use_pallas
-            and in_dt == jnp.float32
-            and n >= _SELL_MIN_ROWS
-        ):
-            # auto format routing for per-host input: the single-host route
-            # checks the GLOBAL pattern against dia.from_csr — here no
-            # process has it, so the DIA gate is a cross-process structure
-            # vote (one fixed-shape allgather of per-block diagonal-offset
-            # partials; every process derives the same verdict).  The
-            # verdict is a pure function of the matrix: cache it per
-            # object so repeated solves skip the O(local nnz) scan and the
-            # collectives (every process caches together — lockstep holds)
-            vote = _dist_stage_cache_get(A, "dia_vote")
-            if vote is None:
-                from gmres_tpu.parallel.halo import rowblock_dia_gate
-
-                vote = rowblock_dia_gate(A, exchange)
-                _dist_stage_cache_put(A, "dia_vote", vote)
-            want_sell = not vote
         rows_per_need = None
         if want_sell:
             # SELL shards sit on a ROWS_PER_BLOCK-aligned grid wider than
@@ -530,28 +474,6 @@ def solve_distributed(
         lo_need, hi_need = process_row_range(mesh, n, owned=owned,
                                              rows_per=rows_per_need)
         covers = A.row_lo <= lo_need and hi_need <= A.row_hi
-        if want_sell and not force_sell:
-            # auto-routed SELL: every process must take the same route, so
-            # if ANY loaded block is too narrow for the SELL shard grid all
-            # of them fall back together (one tiny lockstep allgather)
-            all_cover = bool(np.asarray(
-                exchange(np.array([int(covers)], dtype=np.int64))
-            ).all())
-            if not all_cover:
-                import warnings
-
-                warnings.warn(
-                    "unstructured per-host input would route to SELL, but "
-                    f"the loaded row block [{A.row_lo}, {A.row_hi}) does "
-                    f"not cover the SELL shard grid (rows [{lo_need}, "
-                    f"{hi_need})) on every process; falling back to the "
-                    "allgather path — load with process_row_range(mesh, n, "
-                    "fmt='auto') to enable the SELL fast path"
-                )
-                want_sell = False
-                rows_per_need = None
-                lo_need, hi_need = process_row_range(mesh, n, owned=owned)
-                covers = A.row_lo <= lo_need and hi_need <= A.row_hi
         if not covers:
             raise ValueError(
                 f"row block [{A.row_lo}, {A.row_hi}) does not cover this "
@@ -590,8 +512,7 @@ def solve_distributed(
     prec_seconds = time.perf_counter() - t0
     stage_key = (n_shards, cfg.auto_format, str(out_dt), str(in_dt),
                  str(cfg.precision.precond_dtype), cfg.precond,
-                 cfg.jacobi_steps, cfg.use_pallas, force_df64, multihost,
-                 want_sell)
+                 cfg.jacobi_steps, multihost, want_sell)
 
     t1 = time.perf_counter()
     # one-time norms on the unpartitioned operands (single-device, O(n))
@@ -604,8 +525,7 @@ def solve_distributed(
     if is_block:
         # ||A||_F from per-process partial sums of squares over the
         # DISJOINT owned row range [lo_need, hi_need) — the loaded block
-        # may be wider (fmt='auto' loads the union of the plain and SELL
-        # shard grids, so neighbors' blocks overlap) and summing all
+        # may be wider (neighbors' blocks may overlap) and summing all
         # loaded values would count overlap rows once per process,
         # silently loosening the convergence denominator
         _, av = A_in.entries(lo_need, hi_need)
@@ -628,45 +548,17 @@ def solve_distributed(
     # metadata passes scan one row range at a time, so peak host memory is
     # ~global/P (+halo), not P x global.
     cached = _dist_stage_cache_get(A, stage_key)
-    wrap_df64_sell = False
     if cached is None:
-        # Unstructured fast path (round-2 VERDICT item 3): when the
-        # pattern is not banded (DIA rejects it — so the halo partitioner
-        # could at best produce the rebased HaloCSR, whose local SpMV is
-        # the XLA gather at ~5e7 nnz/s per shard), pack the f32 inner
-        # operator as per-shard SELL and keep the Pallas kernel under
-        # shard_map; the fp64 outer residual rides the df64 SELL sidecar.
         psell = None
-        want_df64 = False
-        if (
-            cfg.auto_format
-            and cfg.use_pallas
-            and in_dt == jnp.float32
-            # per-host INPUT already decided above (force_sell or the
-            # cross-process DIA structure vote)
-            and (not is_block or want_sell)
-            and (A.n_rows >= _SELL_MIN_ROWS or want_sell)
-        ):
-            route_sell = want_sell
-            if not is_block and not route_sell:
-                from gmres_tpu.ops.dia import from_csr as _dia_try
+        if want_sell:
+            from gmres_tpu.parallel.sell_dist import partition_sell
 
-                route_sell = _dia_try(A) is None
-            if route_sell:
-                from gmres_tpu.parallel.sell_dist import partition_sell
-
-                want_df64 = out_dt == jnp.float64 and (
-                    jax.default_backend() == "tpu" or force_df64
-                )
-                psell = partition_sell(A, n_shards, df64=want_df64,
-                                       owned=owned, exchange=exchange)
+            psell = partition_sell(A, n_shards, owned=owned,
+                                   exchange=exchange)
         if psell is not None:
             Ai_p = psell
             rows_per = psell.rows_per_shard
-            if want_df64:
-                wrap_df64_sell = True  # Ao_p wraps after device staging
-                Ao_p = psell           # placeholder; replaced below
-            elif out_dt == in_dt:
+            if out_dt == in_dt:
                 Ao_p = psell
             else:
                 # fp64 outer residual keeps the CSR allgather (runs once
@@ -692,26 +584,6 @@ def solve_distributed(
     else:
         Ao_p, Ai_p, M_p = cached
         partition_local_bytes = None
-
-    # Distributed double-float outer: when the fp64 operator halo-partitions
-    # into DIA form, split it (and b, x) into two-fp32 pairs so the outer
-    # residual runs the Pallas df64 halo kernel instead of XLA-emulated fp64
-    # (the sharded cycle keeps the single-chip fast path; VERDICT item 3).
-    from gmres_tpu.parallel.halo import HaloDIA
-
-    df64_active = hasattr(Ao_p, "data_hi") or wrap_df64_sell
-    if (
-        cached is None
-        and isinstance(Ao_p, HaloDIA)
-        and Ao_p is not Ai_p
-        and out_dt == jnp.float64
-        and cfg.use_pallas
-        and (jax.default_backend() == "tpu" or force_df64)
-    ):
-        from gmres_tpu.ops.pallas.df64_kernel import DF64HaloDia
-
-        Ao_p = DF64HaloDia.from_halo(Ao_p)
-        df64_active = True
 
     shard0 = NamedSharding(mesh, P(AXIS))
 
@@ -740,14 +612,7 @@ def solve_distributed(
     put = lambda t: jax.tree.map(_to_device, t)
     shared = Ao_p is Ai_p
     Ai_p = put(Ai_p)
-    if wrap_df64_sell:
-        # ONE device copy serves both roles: the f32 inner operator and
-        # (wrapped) the df64 outer — the df64 kernels read only the
-        # packed/lo views, which the wrapper shares
-        from gmres_tpu.parallel.sell_dist import PartitionedDF64Sell
-
-        Ao_p = PartitionedDF64Sell(psell=Ai_p)
-    elif shared:
+    if shared:
         Ao_p = Ai_p
     else:
         Ao_p = put(Ao_p)
@@ -770,11 +635,6 @@ def solve_distributed(
     else:
         x = _to_device(pad_vector(np.asarray(x0, dtype=out_dt), n_shards,
                                   rows_eff))
-    if df64_active:
-        from gmres_tpu.ops.pallas.df64_kernel import merge_f64, split_f64
-
-        b_pad = jax.jit(split_f64, out_shardings=(shard0, shard0))(b_pad)
-        x = jax.jit(split_f64, out_shardings=(shard0, shard0))(x)
 
     cycle, dist_cfg = make_distributed_cycle(cfg, mesh)
 
@@ -787,7 +647,7 @@ def solve_distributed(
         from gmres_tpu.parallel.partition import padded_size
 
         ckpt_spec, to_host, from_host, consensus = _dist_ckpt_hooks(
-            checkpoint, mesh, shard0, df64_active,
+            checkpoint, mesh, shard0,
             rows_eff or padded_size(n, n_shards) // n_shards,
             owned, exchange=exchange if multihost else None,
         )
@@ -803,8 +663,6 @@ def solve_distributed(
     # asserts this is ~global/P, not P x global
     result.partition_local_bytes = partition_local_bytes
     result.solve_seconds = time.perf_counter() - t1
-    if df64_active:
-        result.x = jax.jit(merge_f64)(*result.x)
     # slice the padding off under jit: multihost arrays have
     # non-addressable shards, and even single-host eager slicing of a
     # sharded array at a non-shard-aligned boundary (SELL's

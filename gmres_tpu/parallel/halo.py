@@ -4,7 +4,7 @@ The allgather baseline (``ops/spmv.py``) moves (P-1)/P of the operand
 vector to every chip per SpMV.  For row-partitioned banded matrices each
 shard only needs two small *edge windows* of x from its neighbors, so the
 exchange becomes two ``ppermute`` sends of ``halo`` elements — O(bandwidth)
-instead of O(n) — riding ICI neighbor links (SURVEY.md §5.8, the
+instead of O(n) — to the neighbouring devices (SURVEY.md §5.8, the
 "context-parallel of Krylov solvers").
 
 Composition with DIA: a row block of a DIA matrix is a column slice of the
@@ -177,64 +177,6 @@ def partition_halo(A: CSRMatrix, n_shards: int, owned=None, exchange=None):
 _MAX_DIAGS = 256  # from_csr's diagonal-count gate
 
 
-def rowblock_dia_gate(A, exchange=None, max_fill: float = 3.0,
-                      max_diags: int = _MAX_DIAGS) -> bool:
-    """Cross-process structure vote for auto format routing of per-host
-    input (SURVEY.md §5.8): would the GLOBAL pattern DIA-ify under
-    ``ops/dia.py:from_csr``'s profitability gates (distinct-diagonal count
-    and fill bounds)?  Each process scans only its own loaded rows (a
-    ``RowBlockCSR``; overlapping blocks are fine — offsets combine as a
-    set union) and the per-process offset partials merge through ONE
-    fixed-shape ``exchange`` round, so every process derives the same
-    verdict in lockstep.  ``exchange=None`` treats the local scan as
-    global (single-process / whole-range blocks)."""
-    from gmres_tpu.sparse import RowBlockCSR
-
-    n = A.n_rows
-    rp = np.asarray(A.row_ptr).astype(np.int64)
-    nnz = int(rp[-1])
-    if isinstance(A, RowBlockCSR):
-        lo, hi = A.row_lo, A.row_hi
-        ci, _ = A.entries(lo, hi)
-    else:
-        lo, hi = 0, n
-        ci = np.asarray(A.col_idx)[:nnz]
-    offs = ci.astype(np.int64) - np.repeat(
-        np.arange(lo, hi, dtype=np.int64), np.diff(rp[lo : hi + 1])
-    )
-    if offs.shape[0]:
-        # bounded-range unique via a presence bitmap (no nnz-scale sort on
-        # the single-core host; same trick as from_csr)
-        off_min = int(offs.min())
-        present = np.zeros(int(offs.max()) - off_min + 1, dtype=bool)
-        present[offs - off_min] = True
-        uniq = np.flatnonzero(present) + off_min
-    else:
-        uniq = np.zeros(0, dtype=np.int64)
-    overflow = uniq.shape[0] > max_diags
-    if exchange is not None:
-        # every process MUST call exchange exactly once here (lockstep),
-        # including overflowed ones (they signal with a -1 count)
-        from gmres_tpu.parallel.multihost import pack_offsets, union_offsets
-
-        payload = pack_offsets(
-            range(max_diags + 1) if overflow else [int(o) for o in uniq],
-            max_diags,
-        )  # an over-long iterable encodes local overflow (-1 sentinel)
-        gathered = np.asarray(exchange(payload))
-        union = union_offsets(gathered, max_diags)
-        if union is None:
-            return False
-        D = len(union)
-    else:
-        if overflow:
-            return False
-        D = uniq.shape[0]
-    if nnz == 0:
-        return False
-    return D <= max_diags and D * n <= max_fill * nnz
-
-
 def _partition_halo_owned(A, n_shards: int, owned, n_pad: int,
                           r: int, exchange=None):
     """Per-host ``partition_halo``: same acceptance gates and results as
@@ -392,37 +334,30 @@ def _partition_halo_owned(A, n_shards: int, owned, n_pad: int,
 
 
 def _exchange_halos(x_local: jax.Array, hl: int, hr: int, P: int,
-                    axis_name: str, axis: int = 0):
+                    axis_name: str):
     """Build [left_halo | x_local | right_halo] via neighbor ppermutes.
     Boundary shards receive zeros (ppermute zero-fills missing sources),
-    matching out-of-range matrix entries which are structurally zero.
-
-    ``axis`` selects the exchanged dimension — the df64 path stacks the
-    (hi, lo) splits on a leading axis and exchanges both in one pair of
-    ppermutes (``ops/pallas/df64_kernel.py:residual_df64_halo``)."""
-    sl = (slice(None),) * axis
+    matching out-of-range matrix entries which are structurally zero."""
     parts = []
     if hl:
         # shard s receives the tail of shard s-1
         left = jax.lax.ppermute(
-            x_local[sl + (slice(-hl, None),)], axis_name,
-            [(s, s + 1) for s in range(P - 1)]
+            x_local[-hl:], axis_name, [(s, s + 1) for s in range(P - 1)]
         )
         parts.append(left)
     parts.append(x_local)
     if hr:
         # shard s receives the head of shard s+1
         right = jax.lax.ppermute(
-            x_local[sl + (slice(None, hr),)], axis_name,
-            [(s + 1, s) for s in range(P - 1)]
+            x_local[:hr], axis_name, [(s + 1, s) for s in range(P - 1)]
         )
         parts.append(right)
     if len(parts) == 1:
         return x_local
-    return jnp.concatenate(parts, axis=axis)
+    return jnp.concatenate(parts)
 
 
-def halo_spmv(A, x_local: jax.Array, axis: str, use_pallas: bool = True) -> jax.Array:
+def halo_spmv(A, x_local: jax.Array, axis: str) -> jax.Array:
     """Local y = A_block @ x using neighbor halo exchange.  Called inside
     shard_map; ``A`` leaves have a leading length-1 shard dim."""
     P = A.n_shards
@@ -432,21 +367,6 @@ def halo_spmv(A, x_local: jax.Array, axis: str, use_pallas: bool = True) -> jax.
         xx = _exchange_halos(x_local, hl, hr, P, axis)
         data = A.data[0]  # (D, r)
         r = A.rows_per_shard
-        # Local block through the fused Pallas DIA kernel where it beats
-        # XLA (same gate as the single-device path — the sharded cycle must
-        # not silently lose the 11x SpMV win; VERDICT round-1 item 3).
-        from gmres_tpu.ops.dia import _PALLAS_DISABLED, _PALLAS_MIN_ROWS
-
-        if (
-            use_pallas
-            and not _PALLAS_DISABLED
-            and data.dtype == jnp.float32
-            and r >= _PALLAS_MIN_ROWS
-            and jax.default_backend() == "tpu"
-        ):
-            from gmres_tpu.ops.pallas.spmv_kernel import dia_spmv_pallas_windowed
-
-            return dia_spmv_pallas_windowed(data, xx, hl, hr, A.offsets)
         y = jnp.zeros((r,), dtype=data.dtype)
         for d, off in enumerate(A.offsets):
             y = y + data[d] * shift_read(xx, off + hl, r)

@@ -1,16 +1,16 @@
 """Multi-host entry points (SURVEY.md §5.8; new scope vs the single-device
 reference).
 
-A multi-host run is N identical processes, each owning some of the TPU
-chips, cooperating through one global mesh: ``initialize`` wires up the
+A multi-host run is N identical processes, each owning some of the
+devices, cooperating through one global mesh: ``initialize`` wires up the
 JAX distributed runtime, after which ``solve_distributed(...,
 multihost=True)`` runs the row-partitioned solver across all processes —
 shard uploads are per-host (``jax.make_array_from_callback``), the cycle's
-collectives (psum reductions, ppermute halo exchange) ride ICI within a
-slice and DCN across slices as emitted by XLA, and the host driver loop
-stays in lockstep because it only ever fetches replicated scalars.
+collectives (psum reductions, ppermute halo exchange) are emitted by XLA
+(NCCL on GPUs), and the host driver loop stays in lockstep because it only
+ever fetches replicated scalars.
 
-Off-TPU the same code path runs under simulated processes (CPU gloo
+On CPU the same code path runs under simulated processes (gloo
 collectives) — see tests/test_multihost.py.
 """
 
@@ -28,10 +28,9 @@ def initialize(
 ) -> None:
     """Wire up the JAX distributed runtime (idempotent).
 
-    On Cloud TPU pods the arguments are auto-detected from the environment
-    and every argument may be omitted; for manual launches pass the
-    coordinator's ``host:port``, the process count and this process's id
-    (``jax.distributed.initialize`` semantics).
+    Where a cluster manager is detected JAX fills in the arguments; for
+    manual launches pass the coordinator's ``host:port``, the process count
+    and this process's id (``jax.distributed.initialize`` semantics).
     """
     # NOTE: must not touch the XLA backend before distributed init
     # (jax.process_count() would initialize it); is_initialized is safe

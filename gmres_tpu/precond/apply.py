@@ -18,20 +18,13 @@ hardcodes beta=1 — a defect we do not replicate.)
 from __future__ import annotations
 
 import jax
-import jax.numpy as jnp
 
 from gmres_tpu.ops.spmv import spmv
-from gmres_tpu.precond.build import (
-    ExactILUDIAPrec,
-    IdentityPrec,
-    ILUJacobiPrec,
-    JacobiPrec,
-)
+from gmres_tpu.precond.build import IdentityPrec, ILUJacobiPrec, JacobiPrec
 from gmres_tpu.precond.level_ilu import LevelILUPrec, level_ilu_apply
 
 
-def _ilu_jacobi_apply(M: ILUJacobiPrec, w: jax.Array, axis_name: str | None,
-                      use_pallas: bool = True):
+def _ilu_jacobi_apply(M: ILUJacobiPrec, w: jax.Array, axis_name: str | None):
     if M.block_local:
         # block-Jacobi ILU factors are diagonal blocks: every sweep is
         # shard-local, no collectives (precond/bilu.py)
@@ -39,21 +32,20 @@ def _ilu_jacobi_apply(M: ILUJacobiPrec, w: jax.Array, axis_name: str | None,
     b = w
 
     def l_sweep(_, x):
-        return b - spmv(M.lower, x, axis_name, use_pallas=use_pallas)
+        return b - spmv(M.lower, x, axis_name)
 
     x = jax.lax.fori_loop(0, M.steps, l_sweep, b)
 
     b2 = x
 
     def u_sweep(_, x):
-        return x + M.inv_diag * (b2 - spmv(M.upper, x, axis_name,
-                                           use_pallas=use_pallas))
+        return x + M.inv_diag * (b2 - spmv(M.upper, x, axis_name))
 
     return jax.lax.fori_loop(0, M.steps, u_sweep, b2)
 
 
-def apply_preconditioner(M, w: jax.Array, axis_name: str | None = None,
-                         use_pallas: bool = True) -> jax.Array:
+def apply_preconditioner(M, w: jax.Array,
+                         axis_name: str | None = None) -> jax.Array:
     """M^{-1} w in M's dtype (casting handled by the caller's typesafe
     wrapper)."""
     if isinstance(M, IdentityPrec):
@@ -61,7 +53,7 @@ def apply_preconditioner(M, w: jax.Array, axis_name: str | None = None,
     if isinstance(M, JacobiPrec):
         return M.inv_diag * w
     if isinstance(M, ILUJacobiPrec):
-        return _ilu_jacobi_apply(M, w, axis_name, use_pallas)
+        return _ilu_jacobi_apply(M, w, axis_name)
     if isinstance(M, LevelILUPrec):
         if axis_name is not None:
             raise TypeError(
@@ -69,43 +61,10 @@ def apply_preconditioner(M, w: jax.Array, axis_name: str | None = None,
                 "precond='ilu_jacobi' when distributed"
             )
         return level_ilu_apply(M, w)
-    if isinstance(M, ExactILUDIAPrec):
-        if axis_name is not None:
-            raise TypeError(
-                "exact-ILU triangular solves are single-device (the fused "
-                "VMEM kernel); use precond='ilu_jacobi' when distributed"
-            )
-        # the factors may be padded wider than the solve vector (the
-        # segmented form rounds its width to a segment boundary, which
-        # need not match solve()'s _ALIGN padding): pad w up to the
-        # factor width — the extra rows are identity (inv_diag 1, zero
-        # bands), so the tail stays zero — and slice the result back
-        n_w = w.shape[0]
-        width = M.inv_diag.shape[0]
-        if n_w < width:
-            w = jnp.pad(w, (0, width - n_w))
-        if M.seg:
-            from gmres_tpu.ops.pallas.trisolve_kernel import (
-                ilu_trisolve_segmented,
-            )
-
-            out = ilu_trisolve_segmented(
-                M.lower_bands, M.upper_bands, M.inv_diag, w,
-                M.offs_l, M.offs_u, M.steps_l_segs, M.steps_u_segs, M.seg,
-            )
-        else:
-            from gmres_tpu.ops.pallas.trisolve_kernel import ilu_trisolve_fused
-
-            out = ilu_trisolve_fused(
-                M.lower_bands, M.upper_bands, M.inv_diag, w,
-                M.offs_l, M.offs_u, M.steps_l, M.steps_u,
-            )
-        return out[:n_w] if n_w < width else out
     raise TypeError(f"unknown preconditioner {type(M)}")
 
 
-def typesafe_apply(M, w: jax.Array, axis_name: str | None = None,
-                   use_pallas: bool = True) -> jax.Array:
+def typesafe_apply(M, w: jax.Array, axis_name: str | None = None) -> jax.Array:
     """Apply M in its own dtype, round-tripping w if needed
     (``gmres.cpp:12-22``)."""
     if isinstance(M, IdentityPrec):
@@ -114,7 +73,5 @@ def typesafe_apply(M, w: jax.Array, axis_name: str | None = None,
         M.inv_diag.dtype if not isinstance(M, IdentityPrec) else w.dtype
     )
     if w.dtype == m_dtype:
-        return apply_preconditioner(M, w, axis_name, use_pallas)
-    return apply_preconditioner(
-        M, w.astype(m_dtype), axis_name, use_pallas
-    ).astype(w.dtype)
+        return apply_preconditioner(M, w, axis_name)
+    return apply_preconditioner(M, w.astype(m_dtype), axis_name).astype(w.dtype)

@@ -9,7 +9,7 @@ The standard distributed remedy is block-Jacobi ILU: each shard factors
 ONLY its diagonal block ``A[s*r:(s+1)*r, s*r:(s+1)*r]`` and applies
 Jacobi-iteration triangular sweeps locally.
 
-Properties that make this the right shape for a TPU pod:
+Properties that make this the right shape for many devices:
 
 - **Application is communication-free** — the preconditioner is
   block-diagonal by construction, so every sweep is shard-local (DIA

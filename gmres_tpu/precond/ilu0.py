@@ -3,7 +3,7 @@
 The reference factors on host/GPU at preconditioner-build time and times it
 separately from the solve (``gmres_perf_test.cpp:65-93``).  We keep the same
 split: factorization is a one-time host cost; only the *application* runs
-on TPU.
+on the device.
 
 Algorithm parity with ``ilu0_impl`` (``kernels_mkl.cpp:416-496``):
 
@@ -145,7 +145,7 @@ def triangular_level_counts(
 
     An exact unit-lower triangular solve equals ``nlev_L`` Jacobi sweeps
     (the strict part is nilpotent of that index), which is how the exact-ILU
-    preconditioner is applied on TPU (see ``precond/apply.py``).
+    preconditioner is applied (see ``precond/build.py:build_ilu_exact``).
     """
     try:
         from gmres_tpu.native import levels_native

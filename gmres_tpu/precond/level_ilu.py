@@ -3,11 +3,11 @@
 The reference's cuSPARSE ``csrsv2`` path (``kernels_cuda.cpp:617-695``)
 level-schedules the substitution: an analysis pass groups rows by
 dependency depth, then each apply does O(nnz) work regardless of how many
-levels there are.  The TPU analog here:
+levels there are.  The analog here:
 
   * host analysis: per-row dependency levels of the strict-lower and
-    upper factor triangles (the same levels whose max drives the fused
-    VMEM kernel's sweep counts), rows permuted into ascending-level
+    upper factor triangles (the same levels whose max is the full-sweep
+    form's sweep count), rows permuted into ascending-level
     order and grouped into CHUNKS at level-aligned boundaries;
   * device apply: one ``lax.scan`` over the chunks.  Chunk ``c`` covers
     levels ``[a..b]``; rows at level ``a`` depend only on earlier chunks,
@@ -21,9 +21,8 @@ levels there are.  The TPU analog here:
 The sweeps inside a chunk are plain gather + segment-sum in the original
 row index space (x is never permuted; only the *processing order* is),
 so any sparsity pattern is supported.  This is the capability analog of
-csrsv2, not a fast path: gathers run far below DIA/SELL throughput, and
-``build_ilu_exact`` still prefers the fused/segmented VMEM kernels for
-banded factors and plain full sweeps when ``levels * nnz`` is small.
+csrsv2; ``build_ilu_exact`` prefers plain full sweeps when
+``levels * nnz`` is small.
 """
 
 from __future__ import annotations
@@ -169,7 +168,7 @@ def _ranges(rp: np.ndarray, rsel: np.ndarray) -> np.ndarray:
 @dataclasses.dataclass(frozen=True)
 class LevelILUPrec:
     """Exact ILU(0) solves applied by level-scheduled chunk sweeps (the
-    csrsv2 analog for patterns the banded VMEM kernels can't take).
+    csrsv2 analog for factors too deep for full sweeps).
 
     Cites ``kernels_cuda.cpp:617-695`` (reference csrsv2 level-scheduled
     ilusv) for the capability contract.

@@ -4,12 +4,10 @@ sides in lockstep on one device.
 A serving-oriented extension beyond the reference (which is strictly
 single-RHS, ``gmres_perf_test.cpp``): the operator is staged ONCE and every
 per-iteration kernel runs over the whole batch.  What amortizes — and what
-cannot (round-4 VERDICT weak item 8, quantified by
-``scripts/bench_batched_quant.py``):
+cannot:
 
 * per-solve fixed costs (dispatch round trips, one compiled program,
-  one convergence chunk loop) amortize fully — this is where the
-  measured batch-8 gain (~2.6x at convdiff@1M) comes from;
+  one convergence chunk loop) amortize fully;
 * the MATRIX bytes are shared across lanes, but at m=30 they are only
   ~7% of per-iteration traffic (D*n values vs 2*(m+1)*n basis reads) —
   each right-hand side owns its Krylov basis, so per-iteration bandwidth
@@ -25,10 +23,8 @@ is re-derived with per-lane masking: finished lanes are frozen by selects
 while the rest keep iterating (their cycle still computes under vmap's
 both-branches semantics — the standard lockstep-batching trade).
 
-Scope (v1): the vmapped cycle uses the XLA compute paths
-(``use_pallas=False`` is forced — the fused Pallas kernels do not batch);
-banded operators ride the jnp DIA path, which XLA fuses and which is where
-the bandwidth-amortization win is.  df64 tiers, checkpointing, bf16
+Scope: banded operators ride the DIA path, whose SpMV becomes a shifted
+SpMM over the B lanes.  The df64 tier, checkpointing, bf16
 stall-escalation and the fp64 rescue are single-RHS features — use
 ``solve`` for those.
 """
@@ -123,8 +119,8 @@ def solve_batched(A, B, cfg: GmresConfig | None = None, M=None,
     """Solve ``A x_j = b_j`` for every row of ``B`` (shape ``(s, n)`` or a
     sequence of 1-D arrays) in one lockstep batch.  Returns one
     ``GmresResult`` per right-hand side, each equivalent to
-    ``solve(A, B[j], cfg.with_(use_pallas=False))`` (identical restart
-    structure — the batching is a pure vectorization of the same cycle).
+    ``solve(A, B[j], cfg)`` (identical restart structure — the batching is
+    a pure vectorization of the same cycle).
     ``record_history`` fills each result's per-cycle history like
     ``solve(record_history=True)``.
 
@@ -138,9 +134,7 @@ def solve_batched(A, B, cfg: GmresConfig | None = None, M=None,
                          "solve_distributed for sharded solves")
     if cfg.precision.df64_inner:
         raise ValueError("solve_batched does not support the df64 inner "
-                         "tier (its kernels are unbatched); use solve()")
-    # the fused Pallas kernels do not batch; the XLA DIA/CSR paths do
-    cfg = cfg.with_(use_pallas=False)
+                         "tier; use solve()")
     out_dt = jnp.dtype(cfg.precision.outer)
     in_dt = cfg.precision.inner_dtype
 
@@ -152,36 +146,22 @@ def solve_batched(A, B, cfg: GmresConfig | None = None, M=None,
 
     t0 = time.perf_counter()
     if M is None:
-        from gmres_tpu.config import Precond
-
-        if cfg.precond == Precond.ILU:
-            # the fused Pallas trisolve (ExactILUDIAPrec) cannot batch;
-            # the XLA-sweep form is the SAME exact solve (identical
-            # factors and dependency-level counts) and vmaps cleanly
-            from gmres_tpu.precond.build import build_ilu_exact
-
-            M = build_ilu_exact(A, cfg.precision.precond_dtype,
-                                allow_fused=False)
-        else:
-            M = build_preconditioner(A, cfg)
+        M = build_preconditioner(A, cfg)
     if cfg.auto_format:
         from gmres_tpu.precond.build import optimize_precond_format
 
         M = optimize_precond_format(M)
-    A_out, A_in = prepare_operators(A, cfg, allow_df64=False)
+    A_out, A_in = prepare_operators(A, cfg)
     M = jax.device_put(M)
     prec_seconds = time.perf_counter() - t0
 
     t1 = time.perf_counter()
     X = jnp.zeros_like(B)
-    from gmres_tpu.ops.blas import no_df64_fast_dot
-
-    with no_df64_fast_dot():
-        b_norms = jax.vmap(nrm2)(B).astype(_f64)
-        minvb_norms = jax.vmap(
-            lambda b: nrm2(typesafe_apply(M, b.astype(in_dt), None, False))
-        )(B).astype(_f64)
-        a_norm = nrm2(A_in.vals).astype(_f64)
+    b_norms = jax.vmap(nrm2)(B).astype(_f64)
+    minvb_norms = jax.vmap(
+        lambda b: nrm2(typesafe_apply(M, b.astype(in_dt)))
+    )(B).astype(_f64)
+    a_norm = nrm2(A_in.vals).astype(_f64)
 
     pstates = jax.tree.map(
         lambda leaf: jnp.broadcast_to(leaf, (s,) + leaf.shape),
@@ -198,13 +178,9 @@ def solve_batched(A, B, cfg: GmresConfig | None = None, M=None,
     i = 0
     while i < cfg.max_restarts:
         chunk = min(cfg.host_sync_every, cfg.max_restarts - i)
-        from gmres_tpu.ops.blas import no_df64_fast_dot
-
-        with no_df64_fast_dot():  # vmapped cycle: no pallas under vmap
-            (X, pstates, stop, n_run, conv, div, ran, rels, precs, ks) = \
-                _batched_chunk_jit(cfg, chunk, A_out, A_in, M, B, X,
-                                   b_norms, minvb_norms, a_norm, pstates,
-                                   stop)
+        (X, pstates, stop, n_run, conv, div, ran, rels, precs, ks) = \
+            _batched_chunk_jit(cfg, chunk, A_out, A_in, M, B, X,
+                               b_norms, minvb_norms, a_norm, pstates, stop)
         n_run, conv, div, ran, rels, precs, ks = jax.device_get(
             (n_run, conv, div, ran, rels, precs, ks))
         n_run = int(n_run)

@@ -1,15 +1,15 @@
 """Sparse matrix containers as JAX pytrees.
 
 The reference wraps CSR in per-backend classes holding MKL/cuSPARSE handles
-(``types_mkl.hpp:17-107``, ``types_cuda.hpp:47-152``).  On TPU there are no
+(``types_mkl.hpp:17-107``, ``types_cuda.hpp:47-152``).  Here there are no
 library handles: a matrix is a pytree of flat arrays that jits straight into
 XLA programs, and dtype conversion (the mixed scheme's ``A_single``
 construction, ``gmres.cpp:139``) is a value cast at setup.
 
 Beyond the plain CSR triplet we precompute ``row_ids`` (the COO row index of
-each stored entry, sorted): the TPU SpMV is a gather + segment-sum over this
-layout (see ``ops/spmv.py``), so the expensive-on-TPU ``row_ptr`` expansion
-happens once on the host.
+each stored entry, sorted): the CSR SpMV is a gather + segment-sum over this
+layout (see ``ops/spmv.py``), so the ``row_ptr`` expansion happens once on
+the host.
 """
 
 from __future__ import annotations
@@ -20,8 +20,8 @@ from functools import partial
 import jax
 import numpy as np
 
-# Pad nnz to this multiple so recurrent shapes are friendly to the 8x128
-# vector registers and Pallas block specs.
+# Pad nnz to this multiple so matrices of similar size share array shapes
+# (and so compiled programs).
 _NNZ_PAD = 1024
 
 

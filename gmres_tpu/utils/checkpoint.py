@@ -1,4 +1,4 @@
-"""Solver checkpoint/resume for long solves on preemptible TPUs.
+"""Solver checkpoint/resume for long solves on preemptible machines.
 
 The reference has no in-solver checkpointing (SURVEY.md §5.4 — its
 resumability is the append-only experiment CSV).  Here the restart loop can

@@ -20,7 +20,7 @@ def make_history(tmp_path):
                 rows.append({
                     "mat": mat, "type": code, "orth": "MGS", "rlen": "30",
                     "rtol": "0", "rorth": "0", "tol": "1e-06",
-                    "device": "tpu", "prec": "identity",
+                    "device": "gpu", "prec": "identity",
                     "i": "3", "total_iters": "90", "res": "1e-7",
                     "err": "1e-6", "ilu": "0.0", "gmres": f"{t + jitter}",
                 })
@@ -30,7 +30,7 @@ def make_history(tmp_path):
 
 def test_speedups_and_geo_mean(tmp_path):
     mats = make_history(tmp_path)
-    t = best_timings(mats, "1e-06", "MGS", "tpu", "identity", str(tmp_path))
+    t = best_timings(mats, "1e-06", "MGS", "gpu", "identity", str(tmp_path))
     assert set(t) == {"matA", "matB"}
     per_mat, geo = speedups(t, "mp")
     # medians: matA 2.05/1.05, matB 3.05/2.05
@@ -42,7 +42,7 @@ def test_speedups_and_geo_mean(tmp_path):
 
 def test_latex_and_plot(tmp_path):
     mats = make_history(tmp_path)
-    t = best_timings(mats, "1e-06", "MGS", "tpu", "identity", str(tmp_path))
+    t = best_timings(mats, "1e-06", "MGS", "gpu", "identity", str(tmp_path))
     tex = latex_timing_table(t)
     assert "matA" in tex and r"\begin{tabular}" in tex
     out = tmp_path / "s.png"

@@ -30,7 +30,7 @@ def test_batched_matches_single(mode):
     results = solve_batched(A, B, cfg, record_history=True)
     assert len(results) == 4
     for lane, (x_true, r) in enumerate(zip(xs, results)):
-        r_s = solve(A, B[lane], cfg.with_(use_pallas=False),
+        r_s = solve(A, B[lane], cfg,
                     record_history=True)
         assert r.converged and r_s.converged
         assert (r.restarts, r.total_iters) == (r_s.restarts, r_s.total_iters)
@@ -64,7 +64,7 @@ def test_batched_uneven_convergence():
     )
     res = solve_batched(A, np.stack([b_easy, b_hard]), cfg)
     for lane, b in enumerate((b_easy, b_hard)):
-        r_s = solve(A, b, cfg.with_(use_pallas=False))
+        r_s = solve(A, b, cfg)
         assert res[lane].converged == r_s.converged
         assert (res[lane].restarts, res[lane].total_iters) == (
             r_s.restarts, r_s.total_iters)
@@ -83,7 +83,7 @@ def test_batched_policy_relres():
     )
     results = solve_batched(A, B, cfg)
     for lane in range(3):
-        r_s = solve(A, B[lane], cfg.with_(use_pallas=False))
+        r_s = solve(A, B[lane], cfg)
         assert results[lane].converged and r_s.converged
         assert (results[lane].restarts, results[lane].total_iters) == (
             r_s.restarts, r_s.total_iters)
@@ -141,7 +141,7 @@ def test_batched_compressed_basis():
                       restart_length=15, tol=1e-8, max_restarts=300)
     results = solve_batched(A, B, cfg)
     for lane, (x_true, r) in enumerate(zip(xs, results)):
-        r_s = solve(A, B[lane], cfg.with_(use_pallas=False))
+        r_s = solve(A, B[lane], cfg)
         assert r.converged and r_s.converged
         assert (r.restarts, r.total_iters) == (r_s.restarts, r_s.total_iters)
         assert np.linalg.norm(np.asarray(r.x) - x_true) < 1e-3

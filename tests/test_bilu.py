@@ -16,7 +16,7 @@ from gmres_tpu.parallel.dist_gmres import solve_distributed
 from gmres_tpu.precond.bilu import BlockILUCSR, BlockILUDia, build_bilu_jacobi
 from gmres_tpu.precond.ilu0 import ilu0_factorize
 
-from tests.test_rowblock_dist import _run_per_proc, _to_block
+from test_rowblock_dist import _run_per_proc, _to_block
 
 
 def _mixed_cfg(**kw):
@@ -176,34 +176,6 @@ def test_single_device_build_raises():
         build_preconditioner(A, GmresConfig(precond="bilu_jacobi"))
 
 
-def test_sell_packed_factors_match_csr_sweeps(monkeypatch):
-    """Unstructured ILU-Jacobi factors routed through SELL (TPU fast
-    path, forced here on CPU) must reproduce the CSR-sweep solve."""
-    import gmres_tpu.precond.build as B
-    from gmres_tpu import solve
-    from gmres_tpu.ops.sell import SELLMatrix
-
-    A = unstructured_mesh(4096, run=3, seed=2)
-    x_true, b = _problem(A)
-    cfg = GmresConfig(
-        precision=PrecisionSpec.from_mode("mixed"), orth="cgsr",
-        precond="ilu_jacobi", jacobi_steps=3, auto_reorder=False,
-        restart_length=15, tol=1e-9, max_restarts=100,
-    )
-    r_csr = solve(A, b, cfg)
-
-    monkeypatch.setattr(B, "_SELL_FACTOR_FORCE", True)
-    M = B.sell_pack_factors(B.build_preconditioner(A, cfg))
-    assert isinstance(M.lower, SELLMatrix) and isinstance(M.upper, SELLMatrix)
-    A2 = unstructured_mesh(4096, run=3, seed=2)  # fresh: dodge stage cache
-    r_sell = solve(A2, b, cfg)
-    assert r_csr.converged and r_sell.converged
-    assert (r_csr.restarts, r_csr.total_iters) == (
-        r_sell.restarts, r_sell.total_iters)
-    np.testing.assert_allclose(np.asarray(r_csr.x), np.asarray(r_sell.x),
-                               atol=1e-10)
-
-
 def test_distributed_checkpoint_resume(tmp_path):
     """Sharded checkpoint/resume (SURVEY.md §5.4 at pod scale): abort a
     budget-limited distributed solve mid-way, resume, and match the
@@ -243,7 +215,7 @@ def test_ckpt_consensus_adopts_minimum_header():
     shard0 = NamedSharding(mesh, P("rows"))
     spec = CheckpointSpec(path="/tmp/unused.ckpt", every=1)
     _, _, _, consensus = _dist_ckpt_hooks(
-        spec, mesh, shard0, False, 8, None,
+        spec, mesh, shard0, 8, None,
         exchange=lambda arr: np.stack([
             np.asarray(arr),                       # this "process": i=10
             np.array([8, 80, 0, 12, 1e-3]),        # a process behind: i=8
@@ -264,7 +236,7 @@ def test_ckpt_consensus_adopts_minimum_header():
 
     # a process with no file: everyone starts fresh
     _, _, _, consensus2 = _dist_ckpt_hooks(
-        spec, mesh, shard0, False, 8, None,
+        spec, mesh, shard0, 8, None,
         exchange=lambda arr: np.stack([
             np.asarray(arr), np.array([-1.0, 0, 0, 0, 0])]),
     )
@@ -274,4 +246,4 @@ def test_ckpt_consensus_adopts_minimum_header():
 
     # non-contiguous owned shards are rejected up front
     with pytest.raises(ValueError, match="contiguous"):
-        _dist_ckpt_hooks(spec, mesh, shard0, False, 8, [0, 2])
+        _dist_ckpt_hooks(spec, mesh, shard0, 8, [0, 2])

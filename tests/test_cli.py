@@ -161,36 +161,6 @@ def test_condest_accuracy():
     assert abs(cond - true_cond) / true_cond < 0.25  # estimator, not exact
 
 
-def test_condest_df64_sell_route_matches_csr_path(monkeypatch):
-    """The df64-SELL operator routing (round-5: how condest survives
-    unstructured patterns on TPU — the XLA gather path is ~100x off
-    bandwidth) must produce the same estimate as the default CSR path.
-    Forced on via the module gate so CPU/interpret covers the route that
-    failed on chip twice (HLO-constant capture, then the giant-gather
-    wall); the LSQR chunks must receive the operators as jit ARGUMENTS,
-    not closure constants."""
-    from gmres_tpu.io.synth import unstructured_mesh
-    from gmres_tpu.solver import condest as condest_mod
-
-    A = unstructured_mesh(1024, run=3, seed=11)
-    quiet = lambda *a: None  # noqa: E731
-    cond0, smax0, smin0, it0 = condest_mod.condest(
-        A, max_iters=100, verbose=quiet)
-
-    msgs = []
-    monkeypatch.setattr(condest_mod, "_SELL_ROUTE_FORCE", True)
-    cond1, smax1, smin1, it1 = condest_mod.condest(
-        A, max_iters=100, verbose=msgs.append)
-    assert any("df64 SELL" in str(m) for m in msgs), msgs  # route taken
-
-    # identical seeds and iteration protocol; df64 pair arithmetic is
-    # fp64-accurate to ~2^-48, so the trajectories agree tightly
-    assert it1 == it0
-    np.testing.assert_allclose(smax1, smax0, rtol=1e-9)
-    np.testing.assert_allclose(smin1, smin0, rtol=1e-6)
-    np.testing.assert_allclose(cond1, cond0, rtol=1e-6)
-
-
 def test_transpose_csr():
     from gmres_tpu.io.synth import convection_diffusion_2d
     from gmres_tpu.solver.condest import transpose_csr

@@ -1,17 +1,16 @@
-"""Double-float DIA SpMV accuracy vs true fp64 (interpret mode).
+"""Double-float (two-fp32) pair math of the df64 tier vs true fp64.
 
 Guards the error-free transformations against compiler contraction /
 reassociation: a regression shows up as relative error jumping from
 ~1e-14 toward fp32's ~1e-7.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from gmres_tpu.io.synth import convection_diffusion_2d
+from gmres_tpu.ops.df64 import df_dot, merge_f64, split_f64, spmv_df64_pair
 from gmres_tpu.ops.dia import dia_spmv, from_csr
-from gmres_tpu.ops.pallas.df64_kernel import dia_spmv_df64, merge_f64, split_f64
 
 
 def test_split_merge_roundtrip():
@@ -23,6 +22,8 @@ def test_split_merge_roundtrip():
 
 
 def test_df64_spmv_accuracy():
+    """The df64 tier's SpMV on an (hi, lo) operand pair (exact merge, fp64
+    product, exact split) keeps fp64 accuracy, far beyond fp32's."""
     A = from_csr(convection_diffusion_2d(17, beta=3.0))  # n=289
     assert A is not None
     rng = np.random.default_rng(1)
@@ -30,7 +31,8 @@ def test_df64_spmv_accuracy():
 
     y64 = np.asarray(dia_spmv(A.astype(jnp.float64), jnp.asarray(x)),
                      dtype=np.float64)
-    ydf = np.asarray(dia_spmv_df64(A, jnp.asarray(x), interpret=True))
+    yh, yl = spmv_df64_pair(A.astype(jnp.float64), *split_f64(jnp.asarray(x)))
+    ydf = np.asarray(merge_f64(yh, yl))
     y32 = np.asarray(
         dia_spmv(A.astype(jnp.float32), jnp.asarray(x, dtype=jnp.float32))
     ).astype(np.float64)
@@ -44,20 +46,15 @@ def test_df64_spmv_accuracy():
 
 
 def test_df64_fast_dot_matches_fp64():
-    """ops/blas._df64_dot_fast (the TPU fp64 BLAS-1 fast path, round-4
-    VERDICT weak item 5) must agree with the IEEE fp64 dot to ~2^-48
-    relative, including non-1024-multiple lengths (zero-padded pairs)."""
-    import numpy as np
-
-    from gmres_tpu.ops.blas import _df64_dot_fast
-
+    """The df64 pair dot (ops/df64.df_dot, a pairwise tree of double-float
+    additions) agrees with the IEEE fp64 dot to ~2^-48 relative, at
+    lengths that are and are not powers of two."""
     rng = np.random.default_rng(7)
     for n in (1024, 65536, 70000):
-        x = jnp.asarray(rng.standard_normal(n), jnp.float64)
-        y = jnp.asarray(rng.standard_normal(n) * 1e3, jnp.float64)
-        want = float(np.dot(np.asarray(x), np.asarray(y)))
-        got = float(_df64_dot_fast(x, y))
-        assert abs(got - want) <= 2e-13 * max(1.0, abs(want)), (n, got, want)
-        ss = float(_df64_dot_fast(x, x))
-        want_ss = float(np.dot(np.asarray(x), np.asarray(x)))
-        np.testing.assert_allclose(ss, want_ss, rtol=1e-13)
+        x = rng.standard_normal(n)
+        y = rng.standard_normal(n) * 1e3
+        want = float(np.dot(x, y))
+        got = float(df_dot(*split_f64(jnp.asarray(x)),
+                           *split_f64(jnp.asarray(y))))
+        scale = float(np.abs(x) @ np.abs(y))
+        assert abs(got - want) <= 2e-13 * scale, (n, got, want)

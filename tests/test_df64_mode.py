@@ -164,36 +164,3 @@ def test_df64_distributed_mgs(low_sync):
 def test_df64_spec_validation():
     with pytest.raises(ValueError, match="df64_inner"):
         PrecisionSpec("float64", "float32", "float32", df64_inner=True)
-
-
-def test_solve_with_df64_fast_dot_matches_strict(monkeypatch):
-    """Force the TPU fp64 BLAS-1 fast path (ops/blas._df64_dot_fast) on
-    CPU (interpret kernels) through a full fp64 baseline solve: identical
-    convergence structure and solution to the strict-IEEE path — the
-    ~2^-48 dot accuracy must not perturb restart counts at tol=1e-8."""
-    import numpy as np
-
-    import gmres_tpu.ops.blas as blas
-    from gmres_tpu import GmresConfig, PrecisionSpec, solve
-    from gmres_tpu.io.rng import rand_vect
-    from gmres_tpu.io.synth import convection_diffusion_2d
-    from gmres_tpu.ops.spmv import spmv
-
-    A = convection_diffusion_2d(40)  # n=1600 >= the forced threshold
-    x_true = rand_vect(A.n_rows, 42)
-    b = np.asarray(spmv(A, jnp.asarray(x_true)))
-    cfg = GmresConfig(
-        precision=PrecisionSpec.from_mode("baseline"), orth="cgsr",
-        precond="identity", restart_length=25, tol=1e-8, max_restarts=200,
-    )
-    res_strict = solve(A, b, cfg)
-    monkeypatch.setattr(
-        blas, "_use_df64_dot",
-        lambda x, y: (x.dtype == jnp.float64 and x.ndim == 1
-                      and x.shape[0] >= 1024 and not blas._FAST_DOT_OFF))
-    res_fast = solve(A, b, cfg)
-    assert res_fast.converged and res_strict.converged
-    assert res_fast.restarts == res_strict.restarts
-    assert res_fast.total_iters == res_strict.total_iters
-    np.testing.assert_allclose(np.asarray(res_fast.x),
-                               np.asarray(res_strict.x), rtol=1e-9)

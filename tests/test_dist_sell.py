@@ -1,6 +1,5 @@
-"""Distributed SELL: per-shard packs keep the unstructured Pallas fast
-path under shard_map (round-2 VERDICT item 3).  Runs on the 8-virtual-
-device CPU mesh (conftest); the df64 outer rides interpret-mode kernels.
+"""Distributed SELL: per-shard packs under shard_map (``force_sell``).
+Runs on the 8-virtual-device CPU mesh (conftest).
 """
 
 import jax
@@ -11,7 +10,7 @@ import pytest
 from gmres_tpu.config import GmresConfig, PrecisionSpec
 from gmres_tpu.io.rng import rand_vect
 from gmres_tpu.io.synth import unstructured_mesh
-from gmres_tpu.ops.sell import sell_spmv_xla
+from gmres_tpu.ops.sell import sell_spmv
 from gmres_tpu.ops.spmv import spmv
 from gmres_tpu.parallel.sell_dist import PartitionedSELL, partition_sell
 
@@ -36,7 +35,7 @@ def test_partition_sell_local_spmv_matches_csr():
     for s in range(P):
         shard = jax.tree.map(lambda a: a[s : s + 1], psell)
         ls = shard.local_sell()
-        y_s = np.asarray(sell_spmv_xla(ls, jnp.asarray(x)))
+        y_s = np.asarray(sell_spmv(ls, jnp.asarray(x)))
         lo, hi = s * r, (s + 1) * r
         want = np.zeros(r)
         want[: max(0, min(hi, A.n_rows) - lo)] = y_ref[lo : min(hi, A.n_rows)]
@@ -77,9 +76,7 @@ def test_solve_distributed_sell(mode):
         tol=1e-7,
         max_restarts=300,
     )
-    res = dist_gmres.solve_distributed(
-        A, b, cfg, force_sell=True, force_df64=True
-    )
+    res = dist_gmres.solve_distributed(A, b, cfg, force_sell=True)
     assert res.converged
     x = np.asarray(res.x, dtype=np.float64)
     r = b - np.asarray(spmv(A, jnp.asarray(x)))
@@ -93,10 +90,10 @@ def test_solve_distributed_sell(mode):
     assert any(isinstance(t[1], PartitionedSELL) for t in staged), \
         "inner operator was not SELL-partitioned"
     if mode == "mixed":
-        from gmres_tpu.parallel.sell_dist import PartitionedDF64Sell
+        from gmres_tpu.parallel.partition import PartitionedCSR
 
-        assert any(isinstance(t[0], PartitionedDF64Sell) for t in staged), \
-            "fp64 outer did not ride the df64 SELL sidecar"
+        assert any(isinstance(t[0], PartitionedCSR) for t in staged), \
+            "fp64 outer residual did not keep the CSR row partition"
 
 
 def test_partition_sell_multipart_over_chunk_budget(monkeypatch):
@@ -129,7 +126,7 @@ def test_partition_sell_multipart_over_chunk_budget(monkeypatch):
         shard = jax.tree.map(lambda a: a[s : s + 1], psell)
         ls = shard.local_sell()
         assert len(ls.parts) == len(psell.parts)
-        y_s = np.asarray(sell_spmv_xla(ls, jnp.asarray(x)))
+        y_s = np.asarray(sell_spmv(ls, jnp.asarray(x)))
         lo, hi = s * r, (s + 1) * r
         want = np.zeros(r)
         want[: max(0, min(hi, A.n_rows) - lo)] = y_ref[lo : min(hi, A.n_rows)]
@@ -138,8 +135,7 @@ def test_partition_sell_multipart_over_chunk_budget(monkeypatch):
 
 def test_solve_distributed_sell_multipart(monkeypatch):
     """End-to-end sharded solve with a forced multi-part SELL plan: the
-    shard_map'd Pallas path (interpret on CPU) must converge identically
-    to the single-part case."""
+    shard_map'd SELL executor must converge like the single-part case."""
     import gmres_tpu.ops.sell as sm
     from gmres_tpu.parallel import dist_gmres
 
@@ -157,8 +153,7 @@ def test_solve_distributed_sell_multipart(monkeypatch):
         max_restarts=300,
     )
     monkeypatch.setattr(sm, "MAX_CHUNKS_PER_CALL", 64)
-    res = dist_gmres.solve_distributed(A, b, cfg, force_sell=True,
-                                       force_df64=True)
+    res = dist_gmres.solve_distributed(A, b, cfg, force_sell=True)
     assert res.converged
     x = np.asarray(res.x, dtype=np.float64)
     rel = np.linalg.norm(b - np.asarray(spmv(A, jnp.asarray(x))))
@@ -187,7 +182,7 @@ def test_solve_distributed_sell_matches_single_device():
         tol=1e-8,
         max_restarts=300,
     )
-    res_d = solve_distributed(A, b, cfg, force_sell=True, force_df64=True,
+    res_d = solve_distributed(A, b, cfg, force_sell=True,
                               record_history=True)
     res_s = solve(A, b, cfg, record_history=True)
     assert res_d.converged and res_s.converged

@@ -2,6 +2,9 @@
 reference's de-facto integration test, gmres_perf_test.cpp:39-51,104-115)
 across modes, orthogonalizations, preconditioners and policies."""
 
+import contextlib
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -254,15 +257,37 @@ def test_random_diag_dominant():
     assert backward_error(A, res.x, b) <= 1e-8
 
 
+@contextlib.contextmanager
+def _unrolled():
+    """Run with ``backend.unroll_inner()`` answering True.  The jit caches
+    are cleared on entry and exit: the answer is read at trace time, and a
+    program traced under the other answer must not be reused.
+
+    Callers compare against the rolled loop under ``jax.disable_jit()``:
+    both then execute the same operations one by one, so any difference
+    in the histories comes from the control flow under test (post-hoc
+    trigger selection versus early exit) and not from how a compiler
+    fused the two programs."""
+    from gmres_tpu import backend
+
+    real = backend.unroll_inner
+    backend.unroll_inner = lambda: True
+    jax.clear_caches()
+    try:
+        yield
+    finally:
+        backend.unroll_inner = real
+        jax.clear_caches()
+
+
 @pytest.mark.parametrize("policy_kw", [
     dict(rtol=1e-2),                      # REL_PREC_RES
     dict(rtol=1e-2, repeat_iter=True),    # REPEAT_ITERATION
     dict(rtol=1e-2, orthloss=True),       # LOST_ORTHOGONALITY
 ])
 def test_policy_unrolled_matches_rolled(policy_kw):
-    """The TPU unrolled post-hoc-trigger path must reproduce the rolled
-    while_loop's convergence history exactly (VERDICT round-1 item 6)."""
-    import gmres_tpu.solver.gmres as gmres_mod
+    """The unrolled post-hoc-trigger path (``backend.unroll_inner``) must
+    reproduce the rolled while_loop's convergence history exactly."""
 
     A = convection_diffusion_2d(12, beta=1.5)
     x_true = rand_vect(A.n_rows, 42)
@@ -273,13 +298,10 @@ def test_policy_unrolled_matches_rolled(policy_kw):
     )
     assert cfg.policy != RestartPolicy.FIXED
 
-    res_rolled = solve(A, b, cfg, record_history=True)
-    assert gmres_mod._FORCE_POLICY_UNROLL is False
-    gmres_mod._FORCE_POLICY_UNROLL = True
-    try:
-        res_unrolled = solve(A, b, cfg, record_history=True)
-    finally:
-        gmres_mod._FORCE_POLICY_UNROLL = False
+    with jax.disable_jit():
+        res_rolled = solve(A, b, cfg, record_history=True)
+        with _unrolled():
+            res_unrolled = solve(A, b, cfg, record_history=True)
 
     assert res_unrolled.converged == res_rolled.converged
     assert res_unrolled.restarts == res_rolled.restarts
@@ -295,14 +317,13 @@ def test_policy_unrolled_matches_rolled(policy_kw):
 
 def test_repeat_policy_divergence_is_config_inherent():
     """The diverging ``repeat(1e-2)`` bench row (BASELINE.md round-2 policy
-    table) must be a property of the CONFIG, not an artifact of the TPU
+    table) must be a property of the CONFIG, not an artifact of the
     unrolled post-hoc-trigger path: the rolled while_loop and the forced
-    unrolled path must abort identically (round-2 VERDICT weak item 7).
+    unrolled path must abort identically.
 
     conv-diff nx=128 reproduces the bench operator's behavior: the first
     cycle's rtol=1e-2 trigger locks the repeat policy's restart length to a
     small k and GMRES(k) stagnates (IterUtil.hpp:84-137 semantics)."""
-    import gmres_tpu.solver.gmres as gmres_mod
 
     A = convection_diffusion_2d(128, beta=2.0)
     x_true = rand_vect(A.n_rows, 42)
@@ -312,11 +333,8 @@ def test_repeat_policy_divergence_is_config_inherent():
         rlen=30, tol=1e-8, max_restarts=80, rtol=1e-2, repeat_iter=True,
     )
     res_rolled = solve(A, b, cfg, record_history=True)
-    gmres_mod._FORCE_POLICY_UNROLL = True
-    try:
+    with _unrolled():
         res_unrolled = solve(A, b, cfg, record_history=True)
-    finally:
-        gmres_mod._FORCE_POLICY_UNROLL = False
     # both paths diverge (abort at max_restarts), with identical histories
     assert res_rolled.aborted and not res_rolled.converged
     assert res_unrolled.aborted and not res_unrolled.converged
@@ -327,9 +345,8 @@ def test_repeat_policy_divergence_is_config_inherent():
 
 
 def test_fixed_unrolled_matches_rolled():
-    """The FIXED policy's unrolled fori path (what runs on TPU) must match
-    the rolled CPU loop exactly (VERDICT round-1 weak item 7)."""
-    import gmres_tpu.solver.gmres as gmres_mod
+    """The FIXED policy's unrolled fori path (``backend.unroll_inner``)
+    must match the rolled loop exactly."""
 
     A = convection_diffusion_2d(12, beta=1.5)
     x_true = rand_vect(A.n_rows, 42)
@@ -339,12 +356,10 @@ def test_fixed_unrolled_matches_rolled():
         rlen=15, tol=1e-9, max_restarts=100,
     )
     assert cfg.policy == RestartPolicy.FIXED
-    res_rolled = solve(A, b, cfg, record_history=True)
-    gmres_mod._FORCE_POLICY_UNROLL = True
-    try:
-        res_unrolled = solve(A, b, cfg, record_history=True)
-    finally:
-        gmres_mod._FORCE_POLICY_UNROLL = False
+    with jax.disable_jit():
+        res_rolled = solve(A, b, cfg, record_history=True)
+        with _unrolled():
+            res_unrolled = solve(A, b, cfg, record_history=True)
     assert res_unrolled.restarts == res_rolled.restarts
     assert res_unrolled.total_iters == res_rolled.total_iters
     for hr, hu in zip(res_rolled.history, res_unrolled.history):

@@ -188,23 +188,3 @@ def test_trsv_padded_ignores_stale_garbage():
     y = np.asarray(trsv_upper_padded(jnp.asarray(H), jnp.asarray(s), k))
     want = np.linalg.solve(np.triu(H[:k, :k]), s[:k])
     np.testing.assert_allclose(y[:k], want, rtol=1e-12, atol=1e-14)
-
-
-def test_csr_spmv_chunked_matches_unchunked():
-    """The >16M-nnz TPU gather gate (ops/spmv.csr_spmv_chunked) must be
-    numerically identical to the one-shot gather+segment-sum for sorted
-    row ids (VERDICT round-4 item 3: the gate must engage before the
-    crash size instead of faulting the worker)."""
-    import numpy as np
-
-    from gmres_tpu.io.synth import unstructured_mesh
-    from gmres_tpu.ops.spmv import csr_spmv_chunked, spmv
-
-    A = unstructured_mesh(3000, jitter=8, seed=13)
-    x = jnp.asarray(np.random.default_rng(1).standard_normal(A.n_rows))
-    y_ref = np.asarray(spmv(A, x, use_pallas=False))
-    for chunk in (1000, 4096, 10**9):
-        y_c = np.asarray(csr_spmv_chunked(A, x.astype(A.vals.dtype), chunk))
-        # rows straddling a chunk boundary sum their partials in a
-        # different order: ulp-level differences only
-        np.testing.assert_allclose(y_c, y_ref, rtol=1e-14, atol=1e-14)

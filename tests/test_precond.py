@@ -169,78 +169,10 @@ def test_identity():
     assert (np.asarray(typesafe_apply(M, w)) == np.arange(9.0)).all()
 
 
-def test_ilu_exact_fused_kernel_matches_substitution():
-    """f32 banded factors route to the fused in-VMEM trisolve kernel
-    (interpret mode off-TPU); result must equal the exact L/U substitution
-    (VERDICT round-1 item 5)."""
-    import scipy.sparse as sp
-    from gmres_tpu.precond.build import ExactILUDIAPrec, build_ilu_jacobi
-
-    A = convection_diffusion_2d(7)
-    M = build_ilu_exact(A, jnp.float32)
-    assert isinstance(M, ExactILUDIAPrec)
-    n = A.n_rows
-
-    # reference factors via the CSR split (same factorization)
-    Mref = build_ilu_jacobi(A, jnp.float32, steps=1)
-    L = np.eye(n) + Mref.lower.to_scipy().toarray().astype(np.float64)
-    U = Mref.upper.to_scipy().toarray().astype(np.float64)
-
-    rng = np.random.default_rng(12)
-    w = rng.standard_normal(n).astype(np.float32)
-    want = np.linalg.solve(U, np.linalg.solve(L, w.astype(np.float64)))
-    got = np.asarray(apply_preconditioner(M, jnp.asarray(w)))
-    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
-
-
-def test_ilu_exact_segmented_matches_substitution():
-    """Past the single-kernel VMEM budget, banded f32 factors route to the
-    SEGMENTED trisolve chain (band-width halos, per-segment intra-segment
-    sweep counts) — results must equal exact L/U substitution and the
-    fused kernel bit-for-bit semantics (round-2 VERDICT missing item 5)."""
-    from gmres_tpu.precond import build as build_mod
-    from gmres_tpu.precond.build import ExactILUDIAPrec, build_ilu_jacobi
-
-    A = convection_diffusion_2d(60)  # n=3600: bands +-1, +-60
-    old = build_mod._TRISOLVE_VMEM_BYTES
-    build_mod._TRISOLVE_VMEM_BYTES = 60_000  # single kernel needs ~147K
-    try:
-        M = build_ilu_exact(A, jnp.float32)
-    finally:
-        build_mod._TRISOLVE_VMEM_BYTES = old
-    assert isinstance(M, ExactILUDIAPrec) and M.seg > 0
-    assert M.lower_bands.shape[1] % M.seg == 0
-    n_seg = M.lower_bands.shape[1] // M.seg
-    assert len(M.steps_l_segs) == n_seg == len(M.steps_u_segs)
-    # intra-segment levels are strictly below the global count (the halo
-    # absorbed the cross-segment dependencies)
-    assert max(M.steps_l_segs) < M.steps_l
-
-    n = A.n_rows
-    Mref = build_ilu_jacobi(A, jnp.float32, steps=1)
-    L = np.eye(n) + Mref.lower.to_scipy().toarray().astype(np.float64)
-    U = Mref.upper.to_scipy().toarray().astype(np.float64)
-
-    rng = np.random.default_rng(21)
-    w = rng.standard_normal(n).astype(np.float32)
-    want = np.linalg.solve(U, np.linalg.solve(L, w.astype(np.float64)))
-    got = np.asarray(apply_preconditioner(M, jnp.asarray(w)))
-    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
-
-    # and the fused kernel agrees on the same operand
-    M_fused = build_ilu_exact(A, jnp.float32)
-    assert isinstance(M_fused, ExactILUDIAPrec) and M_fused.seg == 0
-    got_fused = np.asarray(apply_preconditioner(M_fused, jnp.asarray(w)))
-    np.testing.assert_allclose(got, got_fused, rtol=1e-6, atol=1e-7)
-
-
 def test_ilu_exact_shallow_levels_use_plain_sweeps():
     """A red-black ordered 5-point operator has exactly 2 dependency levels
     per triangle; build_ilu_exact must return the plain 2-sweep
-    ILUJacobiPrec (exact by nilpotency) instead of a DIA chain kernel —
-    the ~n/2 band offsets degenerate the segmented form to one giant-halo
-    segment that crashed the Mosaic compile on chip (round-5 campaign,
-    bench_ilu_exact)."""
+    ILUJacobiPrec (exact by nilpotency)."""
     from gmres_tpu.ops.reorder import permute_symmetric
     from gmres_tpu.precond.build import ILUJacobiPrec
 
@@ -268,91 +200,44 @@ def test_ilu_exact_shallow_levels_use_plain_sweeps():
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
 
 
-def test_pad_prec_segmented_exact_ilu():
-    """solve()'s _ALIGN padding on a SEGMENTED exact-ILU prec must keep the
-    kernel's invariants: width stays a segment multiple (rounding the pad
-    up), new identity segments get one sweep each, and the apply
-    pads/slices a shorter vector (regression: padding by n_pad - n broke
-    ``n_seg * seg == n`` and left the per-segment step tuples short)."""
-    from gmres_tpu.precond import build as build_mod
-    from gmres_tpu.precond.build import ExactILUDIAPrec
-    from gmres_tpu.solver.gmres import _pad_prec
-
-    A = convection_diffusion_2d(60)  # n=3600
-    old = build_mod._TRISOLVE_VMEM_BYTES
-    build_mod._TRISOLVE_VMEM_BYTES = 60_000
-    try:
-        M = build_ilu_exact(A, jnp.float32)
-    finally:
-        build_mod._TRISOLVE_VMEM_BYTES = old
-    assert isinstance(M, ExactILUDIAPrec) and M.seg > 0
-    width0 = M.inv_diag.shape[0]
-
-    # a pad target that is NOT a multiple of seg (the solve _ALIGN case)
-    n_pad = width0 + M.seg // 2 + 1
-    Mp = _pad_prec(M, n_pad)
-    width = Mp.inv_diag.shape[0]
-    assert width >= n_pad and width % Mp.seg == 0
-    assert len(Mp.steps_l_segs) == width // Mp.seg == len(Mp.steps_u_segs)
-
-    rng = np.random.default_rng(3)
-    w = rng.standard_normal(A.n_rows).astype(np.float32)
-    want = np.asarray(apply_preconditioner(M, jnp.asarray(w)))
-    # apply at the (shorter-than-width) solve padding: owned rows agree,
-    # padded tail stays exactly zero
-    w_pad = np.zeros(n_pad, np.float32)
-    w_pad[: A.n_rows] = w
-    got = np.asarray(apply_preconditioner(Mp, jnp.asarray(w_pad)))
-    assert got.shape[0] == n_pad
-    np.testing.assert_allclose(got[: A.n_rows], want, rtol=1e-6, atol=1e-7)
-    np.testing.assert_allclose(got[A.n_rows:], 0, atol=0)
-
-
 def test_ilu_exact_refuses_unfused_large():
-    """Non-VMEM-fitting exact ILU with huge level counts routes to the
-    level-scheduled csrsv2-analog fallback; when even THAT exceeds the
-    work budget it raises with guidance instead of hanging (the honest
-    gate — updated for precond/level_ilu.py, round-3 VERDICT item 4)."""
+    """Exact ILU with huge level counts routes to the level-scheduled
+    csrsv2-analog form; when even THAT exceeds the work budget it raises
+    with guidance instead of hanging (the honest gate)."""
     from gmres_tpu.precond import build as build_mod
     from gmres_tpu.precond import level_ilu as level_mod
+    from gmres_tpu.precond.build import ILUJacobiPrec
     from gmres_tpu.precond.level_ilu import LevelILUPrec
 
-    A = convection_diffusion_2d(40)  # n=1600, DIA-able
-    old = build_mod._TRISOLVE_VMEM_BYTES
-    build_mod._TRISOLVE_VMEM_BYTES = 0  # force the non-fused path
+    A = convection_diffusion_2d(40)  # n=1600
+    # small problem: the full-sweep form takes it
+    M = build_ilu_exact(A, jnp.float32)
+    assert isinstance(M, ILUJacobiPrec)
+    # simulate bench scale: full-sweep gate refuses, level path takes it
+    import gmres_tpu.precond.ilu0 as ilu0_mod
+
+    real_counts = ilu0_mod.triangular_level_counts
+
+    def fake_counts(rp, ci, diag):
+        return 300_000, 300_000
+
+    build_mod.triangular_level_counts = fake_counts
     try:
-        # small problem: allowed on the XLA sweep path
-        M = build_ilu_exact(A, jnp.float32)
-        from gmres_tpu.precond.build import ILUJacobiPrec
+        M2 = build_ilu_exact(A, jnp.float32)
+        assert isinstance(M2, LevelILUPrec)
+        # ...and when the level-scheduled work is also over budget,
+        # the build refuses
+        real_build = level_mod.build_level_ilu
 
-        assert isinstance(M, ILUJacobiPrec)
-        # simulate bench scale: full-sweep gate refuses, level path takes it
-        import gmres_tpu.precond.ilu0 as ilu0_mod
+        def fat_build(*a, **k):
+            prec, _ = real_build(*a, **k)
+            return prec, build_mod._SWEEP_WORK_BUDGET + 1
 
-        real_counts = ilu0_mod.triangular_level_counts
-
-        def fake_counts(rp, ci, diag):
-            return 300_000, 300_000
-
-        build_mod.triangular_level_counts = fake_counts
+        level_mod.build_level_ilu = fat_build
         try:
-            M2 = build_ilu_exact(A, jnp.float32)
-            assert isinstance(M2, LevelILUPrec)
-            # ...and when the level-scheduled work is also over budget,
-            # the build refuses
-            real_build = level_mod.build_level_ilu
-
-            def fat_build(*a, **k):
-                prec, _ = real_build(*a, **k)
-                return prec, build_mod._SWEEP_WORK_BUDGET + 1
-
-            level_mod.build_level_ilu = fat_build
-            try:
-                with pytest.raises(ValueError, match="ilu_jacobi"):
-                    build_ilu_exact(A, jnp.float32)
-            finally:
-                level_mod.build_level_ilu = real_build
+            with pytest.raises(ValueError, match="ilu_jacobi"):
+                build_ilu_exact(A, jnp.float32)
         finally:
-            build_mod.triangular_level_counts = real_counts
+            level_mod.build_level_ilu = real_build
     finally:
-        build_mod._TRISOLVE_VMEM_BYTES = old
+        build_mod.triangular_level_counts = real_counts

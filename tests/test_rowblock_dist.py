@@ -311,47 +311,13 @@ def test_solve_rowblock_force_sell_matches_full():
                                rtol=0, atol=0)
 
 
-def test_rowblock_dia_gate_matches_global_check():
-    """The cross-process structure vote must agree with dia.from_csr's
-    verdict on the assembled matrix — banded accepts, unstructured
-    rejects — from whole-range blocks and from per-process partials."""
-    from gmres_tpu.io.synth import unstructured_mesh
-    from gmres_tpu.ops.dia import from_csr
-    from gmres_tpu.parallel.halo import rowblock_dia_gate
-
-    for A in (convection_diffusion_2d(24), unstructured_mesh(2048, run=3, seed=2)):
-        expect = from_csr(A) is not None
-        assert rowblock_dia_gate(A) == expect
-        assert rowblock_dia_gate(_to_block(A, 0, A.n_rows)) == expect
-        votes = _run_per_proc(
-            A, 2, 4,
-            lambda blk, shards, ex: rowblock_dia_gate(blk, ex),
-        )
-        assert votes == [expect, expect]
-
-
-def test_process_row_range_auto_covers_both_grids():
-    from gmres_tpu.parallel.sell_dist import sell_rows_per
-
-    mesh = jax.make_mesh((8,), ("rows",))
-    n = 5000
-    for owned in ([0], [3, 4], [6, 7]):
-        lo_c, hi_c = process_row_range(mesh, n, owned=owned)
-        lo_s, hi_s = process_row_range(mesh, n, owned=owned,
-                                       rows_per=sell_rows_per(n, 8))
-        lo_a, hi_a = process_row_range(mesh, n, owned=owned, fmt="auto")
-        assert lo_a <= min(lo_c, lo_s) and hi_a >= max(hi_c, hi_s)
-    with pytest.raises(ValueError, match="not both"):
-        process_row_range(mesh, n, rows_per=640, fmt="auto")
-
-
-def test_solve_rowblock_auto_routes_sell(monkeypatch):
-    """Unstructured per-host input WITHOUT force_sell: the structure vote
-    routes to the per-shard SELL pack (not the slow allgather path)."""
+def test_solve_rowblock_auto_routes_sell():
+    """Unstructured per-host input WITHOUT force_sell: no automatic route
+    picks SELL.  The operator takes the halo (rebased CSR) or allgather
+    CSR partition and matches the full-matrix solve exactly."""
     from gmres_tpu.io.synth import unstructured_mesh
     from gmres_tpu.parallel import dist_gmres
 
-    monkeypatch.setattr(dist_gmres, "_SELL_MIN_ROWS", 1024)
     A = unstructured_mesh(2048, run=3, seed=6)
     blk = _to_block(A, 0, A.n_rows)
     x_true = rand_vect(A.n_rows, 42)
@@ -363,24 +329,23 @@ def test_solve_rowblock_auto_routes_sell(monkeypatch):
     )
     r_blk = solve_distributed(blk, b, cfg)
     assert r_blk.converged
-    # the staged inner operator must be the PartitionedSELL pack
     entry = dist_gmres._DIST_STAGE_CACHE[id(blk)][1]
     staged_types = {type(v[1]).__name__ for v in entry.values()
                     if isinstance(v, tuple)}
-    assert "PartitionedSELL" in staged_types, staged_types
-    # identical route => identical history vs the explicit force_sell solve
-    r_forced = solve_distributed(A, b, cfg, force_sell=True)
+    assert "PartitionedSELL" not in staged_types, staged_types
+    assert staged_types & {"HaloCSR", "PartitionedCSR"}, staged_types
+    # identical route => identical history vs the full-matrix solve
+    r_full = solve_distributed(A, b, cfg)
     assert (r_blk.restarts, r_blk.total_iters) == (
-        r_forced.restarts, r_forced.total_iters)
-    np.testing.assert_allclose(np.asarray(r_blk.x), np.asarray(r_forced.x),
+        r_full.restarts, r_full.total_iters)
+    np.testing.assert_allclose(np.asarray(r_blk.x), np.asarray(r_full.x),
                                rtol=0, atol=0)
 
 
-def test_solve_rowblock_auto_keeps_dia(monkeypatch):
-    """Banded per-host input: the vote keeps the HaloDIA route."""
+def test_solve_rowblock_auto_keeps_dia():
+    """Banded per-host input takes the HaloDIA route."""
     from gmres_tpu.parallel import dist_gmres
 
-    monkeypatch.setattr(dist_gmres, "_SELL_MIN_ROWS", 64)
     A = convection_diffusion_2d(16, beta=1.0)
     blk = _to_block(A, 0, A.n_rows)
     x_true = rand_vect(A.n_rows, 42)

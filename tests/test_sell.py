@@ -1,11 +1,11 @@
-"""SELL format: packer correctness, XLA execution path, Pallas kernel in
-interpret mode, and solver integration (VERDICT round-1 item 1)."""
+"""SELL format: packer correctness, the XLA executor and solver
+integration."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gmres_tpu.ops.sell import SELLMatrix, sell_from_csr, sell_spmv_xla
+from gmres_tpu.ops.sell import SELLMatrix, sell_from_csr, sell_spmv
 from gmres_tpu.sparse import csr_from_coo, csr_from_dense
 
 
@@ -43,7 +43,7 @@ def test_pack_roundtrip_dense():
     S = sell_from_csr(A, W=128, K=4)
     assert S is not None
     x = rng.standard_normal(70)
-    y = np.asarray(sell_spmv_xla(S, jnp.asarray(x)))
+    y = np.asarray(sell_spmv(S, jnp.asarray(x)))
     # dense blocks are stored as f32 (the kernels' native dtype)
     np.testing.assert_allclose(y, a @ x, rtol=1e-5, atol=1e-5)
 
@@ -57,8 +57,8 @@ def test_pack_matches_csr_spmv():
     x = rng.standard_normal(A.n_rows)
     from gmres_tpu.ops.spmv import spmv
 
-    want = np.asarray(spmv(A, jnp.asarray(x), use_pallas=False))
-    got = np.asarray(sell_spmv_xla(S, jnp.asarray(x)))
+    want = np.asarray(spmv(A, jnp.asarray(x)))
+    got = np.asarray(sell_spmv(S, jnp.asarray(x)))
     np.testing.assert_allclose(got, want, rtol=1e-10)
 
 
@@ -78,7 +78,7 @@ def test_pack_long_rows_split_into_layers():
     assert S is not None
     x = rng.standard_normal(n)
     want = A.to_scipy() @ x
-    got = np.asarray(sell_spmv_xla(S, jnp.asarray(x)))
+    got = np.asarray(sell_spmv(S, jnp.asarray(x)))
     np.testing.assert_allclose(got, want, rtol=1e-8, atol=1e-10)
 
 
@@ -95,45 +95,27 @@ def test_pack_refuses_scattered():
     assert sell_from_csr(A) is None
 
 
-def test_interpret_kernel_matches_xla():
-    from gmres_tpu.ops.pallas.sell_kernel import sell_spmv_pallas
-
-    A = _random_local_csr(n=1500, spread=700, seed=5)
-    S = sell_from_csr(A)
-    assert S is not None
-    rng = np.random.default_rng(6)
-    x = rng.standard_normal(A.n_rows)
-    want = np.asarray(sell_spmv_xla(S, jnp.asarray(x)))
-    got = np.asarray(sell_spmv_pallas(S.astype(jnp.float32),
-                                      jnp.asarray(x, jnp.float32),
-                                      interpret=True))
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
-
-
-def test_interpret_kernel_multi_call_split():
-    """Force the multi-pallas_call path by shrinking the chunk budget."""
+def test_multi_part_split_matches_single_part():
+    """Shrinking the chunk budget splits the pack into several parts; the
+    executor's result must not change."""
     import gmres_tpu.ops.sell as sell_mod
-    from gmres_tpu.ops.pallas.sell_kernel import sell_spmv_pallas
 
     A = _random_local_csr(n=2500, spread=500, seed=7)
     rng = np.random.default_rng(8)
     x = rng.standard_normal(A.n_rows)
     S1 = sell_from_csr(A)
     assert S1 is not None
-    want = np.asarray(sell_spmv_xla(S1, jnp.asarray(x)))
+    want = np.asarray(sell_spmv(S1, jnp.asarray(x)))
     old = sell_mod.MAX_CHUNKS_PER_CALL
     sell_mod.MAX_CHUNKS_PER_CALL = max(4, S1.n_chunks // 3)
     try:
         S = sell_from_csr(A)
         assert len(S.parts) >= 2
-        got_xla = np.asarray(sell_spmv_xla(S, jnp.asarray(x)))
-        got = np.asarray(sell_spmv_pallas(S.astype(jnp.float32),
-                                          jnp.asarray(x, jnp.float32),
-                                          interpret=True))
+        got = np.asarray(sell_spmv(S, jnp.asarray(x)))
     finally:
         sell_mod.MAX_CHUNKS_PER_CALL = old
-    np.testing.assert_allclose(got_xla, want, rtol=1e-10)
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got, want, rtol=1e-10)
+    np.testing.assert_allclose(got, A.to_scipy() @ x, rtol=1e-10, atol=1e-12)
 
 
 def test_solve_with_sell_operator():
@@ -160,7 +142,7 @@ def test_solve_with_sell_operator():
 
 def test_hybrid_dense_chunks():
     """(slab, bucket) pairs above the fill threshold become dense blocks;
-    result must match across XLA and interpret-kernel paths."""
+    the executor's result must match scipy."""
     n = 1500
     rng = np.random.default_rng(11)
     # rows 0..255 densely coupled to cols 0..127 (fill ~40% in that pair),
@@ -183,77 +165,9 @@ def test_hybrid_dense_chunks():
     assert S.n_dense_chunks > 0, "expected dense chunks"
     x = rng.standard_normal(n)
     want = A.to_scipy() @ x
-    got_xla = np.asarray(sell_spmv_xla(S, jnp.asarray(x)))
+    got_xla = np.asarray(sell_spmv(S, jnp.asarray(x)))
     # dense blocks are f32-native; ELL values keep the build dtype
     np.testing.assert_allclose(got_xla, want, rtol=2e-6, atol=2e-6)
-
-    from gmres_tpu.ops.pallas.sell_kernel import sell_spmv_pallas
-
-    got_k = np.asarray(sell_spmv_pallas(S.astype(jnp.float32),
-                                        jnp.asarray(x, jnp.float32),
-                                        interpret=True))
-    np.testing.assert_allclose(got_k, want, rtol=1e-4, atol=1e-4)
-
-
-def test_df64_sell_spmv_accuracy():
-    """Double-float SELL SpMV (interpret mode) reaches ~2^-45 relative
-    accuracy vs the exact fp64 product — the mixed scheme's fp64 outer
-    residual for unstructured operators."""
-    from gmres_tpu.ops.pallas.sell_kernel import sell_spmv_df64
-
-    A = _random_local_csr(n=1500, spread=700, seed=13)
-    # make values need more than f32 precision
-    rng = np.random.default_rng(14)
-    vals = np.asarray(A.vals)[: A.nnz] * (1.0 + 1e-9 * rng.standard_normal(A.nnz))
-    import gmres_tpu.sparse as sparse_mod
-
-    A = sparse_mod.csr_from_arrays(
-        np.asarray(A.row_ptr), np.asarray(A.col_idx)[: A.nnz], vals,
-        n_cols=A.n_cols,
-    )
-    S = sell_from_csr(A, df64=True)
-    assert S is not None and S.packed_lo
-
-    x = rng.standard_normal(A.n_rows)
-    xh = x.astype(np.float32)
-    xl = (x - xh.astype(np.float64)).astype(np.float32)
-    yh, yl = sell_spmv_df64(S, jnp.asarray(xh), jnp.asarray(xl),
-                            interpret=True)
-    got = np.asarray(yh, np.float64) + np.asarray(yl, np.float64)
-    want = A.to_scipy() @ x
-    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
-    assert rel < 1e-11, rel
-
-
-def test_df64_sell_dense_chunks_accuracy():
-    """df64 path through the dense-block kernel as well."""
-    from gmres_tpu.ops.pallas.sell_kernel import sell_spmv_df64
-
-    n = 1500
-    rng = np.random.default_rng(15)
-    rows, cols = [], []
-    for i in range(256):
-        c = np.unique(rng.integers(0, 128, size=50))
-        rows.extend([i] * len(c))
-        cols.extend(c.tolist())
-    for i in range(n):
-        c = np.unique(np.clip(i + rng.integers(-60, 60, size=3), 0, n - 1))
-        rows.extend([i] * len(c))
-        cols.extend(c.tolist())
-    vals = rng.standard_normal(len(rows)) * (1 + 1e-9)
-    A = csr_from_coo(np.asarray(rows), np.asarray(cols), vals, n_rows=n)
-    S = sell_from_csr(A, W=128, K=4, df64=True)
-    assert S is not None and S.n_dense_chunks > 0 and S.dense_lo
-
-    x = rng.standard_normal(n)
-    xh = x.astype(np.float32)
-    xl = (x - xh.astype(np.float64)).astype(np.float32)
-    yh, yl = sell_spmv_df64(S, jnp.asarray(xh), jnp.asarray(xl),
-                            interpret=True)
-    got = np.asarray(yh, np.float64) + np.asarray(yl, np.float64)
-    want = A.to_scipy() @ x
-    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
-    assert rel < 1e-11, rel
 
 
 def test_pack_unsorted_columns():
@@ -271,7 +185,7 @@ def test_pack_unsorted_columns():
     S = sell_from_csr(A, W=128, K=4)
     assert S is not None
     x = np.ones(512)
-    y = np.asarray(sell_spmv_xla(S, jnp.asarray(x)))
+    y = np.asarray(sell_spmv(S, jnp.asarray(x)))
     np.testing.assert_allclose(y[0], 10.0, rtol=1e-12)
 
     # a larger random shuffle-within-rows case, checked against scipy
@@ -292,7 +206,7 @@ def test_pack_unsorted_columns():
     S = sell_from_csr(A, W=128, K=4)
     assert S is not None and S.nnz == nnz
     x = rng.standard_normal(n)
-    got = np.asarray(sell_spmv_xla(S, jnp.asarray(x)))
+    got = np.asarray(sell_spmv(S, jnp.asarray(x)))
     want = A.to_scipy() @ x
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-8)
 
@@ -305,50 +219,3 @@ def test_autotune_single_param_held_fixed():
     assert S_w is not None and S_w.W == 256
     S_k = sell_from_csr(A, K=8)
     assert S_k is not None and S_k.K == 8
-
-
-def test_cost_model_calibration_override(tmp_path, monkeypatch):
-    """GMRES_TPU_SELL_CALIBRATION points at a JSON written by
-    scripts/calibrate_sell_cost.py; the autotune must read it instead of
-    the v5e defaults (round-2 VERDICT weak item 6)."""
-    import json
-
-    import gmres_tpu.ops.sell as sm
-
-    path = tmp_path / "cal.json"
-    path.write_text(json.dumps(
-        {"fixed_ns": 999.0, "ns_per_lane": 1.5, "ns_per_slot_byte": 0.5}))
-    monkeypatch.setenv("GMRES_TPU_SELL_CALIBRATION", str(path))
-    monkeypatch.setattr(sm, "_COST_CACHE", None)
-    cm = sm._cost_model()
-    assert cm == {"fixed_ns": 999.0, "ns_per_lane": 1.5,
-                  "ns_per_slot_byte": 0.5,
-                  "ns_per_lane_slot": sm._COST_DEFAULTS["ns_per_lane_slot"]}
-    # unknown keys are ignored, missing keys keep defaults
-    path.write_text(json.dumps({"fixed_ns": 5.0, "bogus": 1}))
-    monkeypatch.setattr(sm, "_COST_CACHE", None)
-    cm = sm._cost_model()
-    assert cm["fixed_ns"] == 5.0
-    assert cm["ns_per_lane"] == sm._COST_DEFAULTS["ns_per_lane"]
-    monkeypatch.setattr(sm, "_COST_CACHE", None)  # restore for other tests
-
-
-def test_interpret_xres_and_windowed_agree(monkeypatch):
-    """The x-resident kernel (operand in VMEM scratch, round-4 throughput
-    push) and the windowed-DMA kernel produce identical results."""
-    import gmres_tpu.ops.pallas.sell_kernel as sk
-    from gmres_tpu.io.synth import unstructured_mesh
-
-    A = unstructured_mesh(4096, run=3, seed=9)
-    S = sell_from_csr(A)
-    assert S is not None
-    x = jnp.asarray(
-        np.random.default_rng(2).standard_normal(A.n_rows), jnp.float32)
-    Sf = S.astype(jnp.float32)
-    monkeypatch.setattr(sk, "_NO_XRES", False)
-    y_x = np.asarray(sk.sell_spmv_pallas(Sf, x, interpret=True))
-    monkeypatch.setattr(sk, "_NO_XRES", True)
-    y_w = np.asarray(sk.sell_spmv_pallas(Sf, x, interpret=True))
-    np.testing.assert_array_equal(y_x, y_w)
-    ref = np.asarray(sell_spmv_xla(Sf, x))
-    np.testing.assert_allclose(y_x, ref, rtol=1e-5, atol=1e-5)

@@ -215,13 +215,13 @@ def test_spmv_matches_dense_native_pack():
     # end-to-end: the native-packed operator multiplies correctly
     import jax.numpy as jnp
 
-    from gmres_tpu.ops.sell import sell_spmv_xla
+    from gmres_tpu.ops.sell import sell_spmv
 
     A = unstructured_mesh(2000, run=3, seed=9)
     S = sell_from_csr(A, W=128, K=4)
     assert S is not None
     x = np.linspace(-1.0, 1.0, 2000)
-    y = np.asarray(sell_spmv_xla(S, jnp.asarray(x)))
+    y = np.asarray(sell_spmv(S, jnp.asarray(x)))
     y_ref = A.to_dense() @ x
     # the XLA SpMV accumulates in f32 regardless of the stored dtype
     np.testing.assert_allclose(y, y_ref, rtol=5e-5, atol=5e-5)
